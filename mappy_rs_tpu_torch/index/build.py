@@ -1,0 +1,176 @@
+"""Reference index builder: FASTA -> MinimizerIndex.
+
+The port of the JAX package's index/build.py.  Contigs are sketched by
+the native C++ contig sketcher when the host library builds (the same
+emission engine as the CPU read path, bit-exact with the device
+sketch), else by the torch sketch (ops/sketch.py) in fixed-size
+overlapping chunks on the configured device; only the emitted
+(key, pos, strand) triples return to the host for the sort/unique pass.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import IndexOptions
+from ..utils.seqcodes import encode, read_fasta_codes
+from .index import MinimizerIndex
+from .mmi import load_mmi
+
+# chunk size for device sketching of long contigs
+_CHUNK = 1 << 20
+
+
+def _sketch_contig_device(codes: np.ndarray, k: int, w: int,
+                          device="cpu") -> np.ndarray:
+    """Sketch one contig with the torch sketch on `device`; returns
+    [n, 3] uint64 rows (key, pos_end, strand)."""
+    from ..ops.sketch import sketch
+
+    L = len(codes)
+    left, right = w + 2 * k, w + 1
+    out_rows: List[np.ndarray] = []
+    start = 0
+    while start < L:
+        keep_end = min(start + _CHUNK, L)
+        lo = max(start - left, 0)
+        hi = min(keep_end + right, L)
+        chunk = codes[lo:hi]
+        # true length: for the final chunk the final-flush clause fires
+        # at the real contig end; for middle chunks the fake end lies in
+        # the discarded right overlap (right > w-1)
+        padded = torch.full((1, len(chunk)), 4, dtype=torch.uint8)
+        padded[0] = torch.from_numpy(np.ascontiguousarray(chunk))
+        res = sketch(padded.to(device),
+                     torch.tensor([len(chunk)], device=device), k, w)
+        pos_all = np.nonzero(res["minimizer"][0].cpu().numpy())[0]
+        keep_lo, keep_hi = start - lo, keep_end - lo
+        pos = pos_all[(pos_all >= keep_lo) & (pos_all < keep_hi)]
+        key = res["key"][0].cpu().numpy()[pos].astype(np.uint64)
+        strand = res["strand"][0].cpu().numpy()[pos].astype(np.uint64)
+        abs_pos = (pos - keep_lo + start).astype(np.uint64)
+        out_rows.append(np.stack([key, abs_pos, strand], axis=1))
+        start = keep_end
+    if not out_rows:
+        return np.empty((0, 3), np.uint64)
+    return np.concatenate(out_rows, axis=0)
+
+
+def _sketch_contig_native(codes: np.ndarray, k: int, w: int, is_hpc: bool):
+    """C++ contig sketcher (native/front_end.cc sketch_contig); None
+    when the native lib is unavailable."""
+    from .. import native
+
+    res = native.sketch_contig(codes, k, w, is_hpc)
+    if res is None:
+        return None
+    keys, y = res
+    return np.stack([keys, y >> np.uint64(1), y & np.uint64(1)], axis=1)
+
+
+def build_index(
+    seqs: Sequence[Tuple[str, str]],
+    opts: IndexOptions | None = None,
+    device="cpu",
+    n_threads: int = 0,
+) -> MinimizerIndex:
+    """Build a MinimizerIndex from (name, sequence) pairs.
+
+    ``n_threads`` parallelizes native contig sketching across host
+    threads (the C call releases the GIL); 0 = one per CPU.  ``device``
+    is where the torch sketch runs when the native sketcher is absent.
+    """
+    opts = opts or IndexOptions()
+    is_hpc = bool(opts.flag & 0x1)  # MM_I_HPC
+    k, w = opts.k, opts.w
+    names: List[str] = []
+    lens: List[int] = []
+    all_codes: List[np.ndarray] = []
+    jobs: List[Tuple[int, np.ndarray]] = []  # (rid, codes) to sketch
+    for rid, (name, seq) in enumerate(seqs):
+        codes = seq if isinstance(seq, np.ndarray) else encode(seq)
+        names.append(name)
+        lens.append(len(codes))
+        all_codes.append(codes)
+        if len(codes) >= k:
+            jobs.append((rid, codes))
+
+    def _sketch_one(codes: np.ndarray) -> np.ndarray:
+        rows = _sketch_contig_native(codes, k, w, is_hpc)
+        if rows is None:
+            if is_hpc:
+                from ..ops.sketch import HPC_TODO
+
+                raise NotImplementedError(HPC_TODO)
+            rows = _sketch_contig_device(codes, k, w, device)
+        return rows
+
+    from .. import native as _native
+
+    if n_threads <= 0:
+        import os
+
+        n_threads = os.cpu_count() or 1
+    if n_threads > 1 and len(jobs) > 1 and _native.available():
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=n_threads) as ex:
+            all_rows = list(ex.map(lambda j: _sketch_one(j[1]), jobs))
+    else:
+        all_rows = [_sketch_one(c) for _, c in jobs]
+    key_parts: List[np.ndarray] = []
+    y_parts: List[np.ndarray] = []
+    for (rid, _), rows in zip(jobs, all_rows):
+        if len(rows):
+            key_parts.append(np.ascontiguousarray(rows[:, 0]))
+            y_parts.append(
+                (np.uint64(rid) << np.uint64(32))
+                | (rows[:, 1] << np.uint64(1))
+                | rows[:, 2]
+            )
+
+    if key_parts:
+        keys_all = np.concatenate(key_parts)
+        y_all = np.concatenate(y_parts)
+        # stable sort by key only == lexsort((y, key)): rows are
+        # appended in (rid, pos) order and a minimizer position holds
+        # one strand, so within equal keys insertion order IS y order
+        order = np.argsort(keys_all, kind="stable")
+        keys_all = keys_all[order]
+        positions = y_all[order]
+        mask = np.empty(len(keys_all), bool)
+        mask[0] = True
+        np.not_equal(keys_all[1:], keys_all[:-1], out=mask[1:])
+        first = np.flatnonzero(mask)
+        uniq = keys_all[first]
+        offsets = np.concatenate([first, [len(keys_all)]]).astype(np.uint64)
+    else:
+        uniq = np.empty(0, np.uint64)
+        offsets = np.zeros(1, np.uint64)
+        positions = np.empty(0, np.uint64)
+
+    return MinimizerIndex(
+        k=k,
+        w=w,
+        bucket_bits=opts.bucket_bits,
+        flag=opts.flag & 0x7,
+        seq_names=names,
+        seq_lens=np.asarray(lens, np.uint32),
+        keys=uniq,
+        key_offsets=offsets,
+        positions=positions,
+        ref_codes=np.concatenate(all_codes) if all_codes else np.empty(0, np.uint8),
+    )
+
+
+def load_or_build(path: str, opts: IndexOptions | None = None,
+                  device="cpu") -> MinimizerIndex:
+    """Open a .mmi index or build one from FASTA/FASTQ — the behaviour
+    of ``mm_idx_reader_open/read`` (lib.rs:395-413)."""
+    with open(path, "rb") as fh:
+        magic = fh.read(4)
+    if magic == b"MMI\x02":
+        return MinimizerIndex.from_raw(load_mmi(path))
+    return build_index(read_fasta_codes(path), opts, device=device)

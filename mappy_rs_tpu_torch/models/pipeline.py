@@ -1,0 +1,1113 @@
+"""End-to-end alignment pipeline on torch: the port's AlignmentEngine.
+
+Drives the map path the reference reaches through
+``minimap2::Aligner::map``: sketch -> seed lookup -> chaining DP ->
+chain backtrack on the device (one fused front end per batch,
+``front_end_bt``), then the host C++ post-chain (regions, banded
+extension, CIGAR/cs/MD, mapq) on the downloaded chain table.
+
+Batching: reads are length-bucketed and padded so every device stage
+runs on [B, L] tensors of a few static shapes.  Each bucket runs a
+software pipeline of depth ``cfg.pipeline_depth``: up to depth-1 front
+ends are enqueued on the card while the host finishes an earlier
+batch.  A front end issues no host sync between its upload and the
+download of its chain table; the download lands in pinned memory and a
+CUDA event marks it complete.
+
+Not ported yet (raise NotImplementedError): the splice presets, the
+device extension backends ("device", "device_dl"), the multi-device
+front ends and the packed-block sink of the process runtime.
+"""
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import MM_F_RMQ, MM_F_SPLICE
+from ..config import MM_F_SR as _MM_F_SR
+from ..config import AlignerConfig, MapOptions
+from ..index.index import DeviceIndex, MinimizerIndex, resolve_device
+from ..ops import cigar as cig
+from ..ops.backtrack import backtrack_chains, backtrack_fits
+from ..ops.chain import ChainParams
+from ..ops.chain_kernel import chain_scores_kernel
+from ..ops.extend import ExtendParams
+from ..ops.lookup import collect_anchors
+from ..ops.regions import (
+    Region,
+    regions_from_compact,
+    select_sub,
+    set_mapq,
+    set_parent,
+)
+from ..ops.sketch import HPC_TODO, sketch_compact
+from ..utils.metrics import EngineMetrics
+from ..utils.seqcodes import encode
+
+# region part CIGARs are packed int32 (len<<4|op) arrays end-to-end
+# (the extension engines' wire format); this is the canonical "empty"
+_EMPTY_OPS = np.empty(0, np.int32)
+
+SPLICE_TODO = (
+    "splice presets (MM_F_SPLICE) are not ported yet (ROADMAP Queue 1, "
+    "splice path)"
+)
+EXT_TODO = (
+    "only the host C++ extension backend is ported; the device extension "
+    "backends (kernels K3/K4) are ROADMAP Queue 1 item 9"
+)
+
+
+def _pow2_at_least(n: int, lo: int = 1) -> int:
+    p = lo
+    while p < n:
+        p <<= 1
+    return p
+
+
+def front_end_bt(
+    codes: torch.Tensor, lens: torch.Tensor, dev: DeviceIndex, *,
+    k: int, w: int, M: int, A: int, chain_params: ChainParams,
+    window: int, mid_occ: int, q_occ_frac: float, occ_dist: int,
+    max_max_occ: int, bt_k: int, bt_cuts: int, min_cnt: int, min_sc: int,
+):
+    """The fused device front end: sketch -> seed lookup -> chain DP
+    (kernel K1) -> chain backtrack (kernel K2), all on the device of
+    `codes` with no host sync.
+
+    codes: uint8 [B, L] (padded with 4), lens: int32 [B].  Returns
+    (chains int32 [B, bt_k, 9 + 2*bt_cuts], aux int32 [2, B] =
+    (rep_len, n_raw)); n_raw > A marks reads whose seed hits overflowed
+    the anchor budget."""
+    mins = sketch_compact(codes, lens, k, w, M)
+    anchors = collect_anchors(
+        mins, lens, dev, mid_occ, A, k, q_occ_frac, occ_dist, max_max_occ,
+    )
+    f, p = chain_scores_kernel(anchors, chain_params, window)
+    chains = backtrack_chains(anchors, f, p, bt_k, bt_cuts, min_cnt, min_sc)
+    return chains, torch.stack([anchors["rep_len"], anchors["n_raw"]])
+
+
+@dataclass
+class _ExtJob:
+    region: Region
+    kind: str  # 'left' | 'mid' | 'right'
+    q: np.ndarray
+    t: np.ndarray
+    seg: int = 0  # segment index for multi-part mid alignments
+
+
+@dataclass
+class _FrontEndHandles:
+    """One dispatched front end: host-side results (pinned on CUDA)
+    and the event that marks their download complete (None on CPU)."""
+
+    chains: torch.Tensor
+    aux: torch.Tensor
+    done: Optional[torch.cuda.Event]
+    inputs: tuple  # staged uploads, kept alive until the batch is done
+
+
+class AlignmentEngine:
+    """Batched aligner over one MinimizerIndex, front end on cfg.device."""
+
+    def __init__(
+        self,
+        index: MinimizerIndex,
+        opt: MapOptions,
+        cfg: Optional[AlignerConfig] = None,
+    ):
+        self.index = index
+        self.opt = opt
+        self.cfg = cfg or AlignerConfig()
+        self.device = resolve_device(self.cfg.device)
+        if opt.flag & MM_F_SPLICE:
+            raise NotImplementedError(SPLICE_TODO)
+        self._ext_params = ExtendParams(
+            a=opt.a, b=opt.b, q=opt.q, e=opt.e, q2=opt.q2, e2=opt.e2,
+            sc_ambi=opt.sc_ambi,
+        )
+        # band width class for flank extensions (host C++ extension)
+        self.flank_band = 128
+        self.metrics = EngineMetrics()
+        max_gap_ref = opt.max_gap_ref if opt.max_gap_ref >= 0 else opt.max_gap
+        self._chain_params = ChainParams(
+            max_dist_x=max_gap_ref,
+            max_dist_y=opt.max_gap,
+            bw=opt.bw,
+            q_span=index.k,
+            chn_pen_gap=opt.chain_gap_scale * 0.01 * index.k,
+            chn_pen_skip=opt.chain_skip_scale * 0.01 * index.k,
+        )
+
+    # ------------------------------------------------------------------
+    @property
+    def dev(self) -> DeviceIndex:
+        """Device index tensors, uploaded lazily on first device use."""
+        return self.index.device_index(self.device)
+
+    def map_batch(
+        self, seqs: Sequence[str], cs: bool = False, md: bool = False
+    ) -> List[List[Region]]:
+        """Map a batch of reads; returns per-read region lists (aligned,
+        mapq'd, primary-marked), best first."""
+        out: List[List[Region]] = [[] for _ in seqs]
+        with self.metrics.timer("map_batch"):
+            self.metrics.add("reads", len(seqs))
+            codes = [encode(s) for s in seqs]
+            # MM_F_RMQ presets need the long-gap chaining pass of the
+            # native CPU front end (as in the JAX package)
+            want_cpu = self.cfg.front_end_backend == "cpu" or bool(
+                self.opt.flag & MM_F_RMQ
+            )
+            if want_cpu:
+                from .. import native
+
+                if native.available():
+                    self._map_cpu(codes, out, cs, md)
+                    return out
+            buckets = {}
+            for i, c in enumerate(codes):
+                buckets.setdefault(self._bucket_len(len(c)), []).append(i)
+            for L, idxs in buckets.items():
+                self._map_bucket(L, idxs, codes, out, cs, md)
+        return out
+
+    def _map_cpu(
+        self,
+        codes: List[np.ndarray],
+        out: List[List[Region]],
+        cs: bool,
+        md: bool,
+    ) -> None:
+        """Full-batch CPU mapping: native front end (sketch + lookup +
+        chain + backtrack, native/front_end.cc) feeding the same
+        extension/finalize pipeline.  No padding/bucketing needed —
+        the scalar path is shape-free.  This is the reference-style
+        CPU aligner (and the measured bench baseline)."""
+        from .. import native
+
+        od, mmo = self._seed_select_params()
+        use_rmq = bool(self.opt.flag & MM_F_RMQ)
+        with self.metrics.timer("front_end"):
+            chains, rep_len, _n_anchors = native.front_end_batch(
+                self.index, codes, self.opt.mid_occ, self._chain_params,
+                self.cfg.cpu_chain_max_iter, self.opt.min_cnt,
+                self.opt.min_chain_score, self.cfg.backtrack_k,
+                8, self.SEG_LEN, occ_dist=od, max_max_occ=mmo,
+                bw_long=int(self.opt.bw_long), use_rmq=use_rmq,
+            )
+        self._post_chain_tail(chains, rep_len, codes, out, cs, md)
+
+    def _post_chain_tail(
+        self,
+        chains: np.ndarray,
+        rep_len,
+        codes: List[np.ndarray],
+        out: List[List[Region]],
+        cs: bool,
+        md: bool,
+    ) -> None:
+        """Everything after compact chains are known: fused native
+        post-chain for the fast path, Python regions + extension +
+        finalize for fallback reads (the _map_cpu path)."""
+        fb = self._post_chain_native(
+            list(range(len(codes))), chains,
+            np.asarray(rep_len, np.int32), codes, out, cs, md,
+        )
+        if fb is not None and not fb.any():
+            return
+        jobs: List[_ExtJob] = []
+        read_regions: List[Tuple[int, List[Region], int]] = []
+        for ri, c in enumerate(codes):
+            if fb is not None and not fb[ri]:
+                continue
+            qlen = len(c)
+            regions = regions_from_compact(chains[ri], qlen, self.index.k)
+            set_parent(regions, self.opt.mask_level, self.opt.mask_len)
+            regions = select_sub(regions, self.opt.pri_ratio, self.opt.best_n)
+            read_regions.append((ri, regions, int(rep_len[ri])))
+            jobs.extend(self._make_jobs(regions, c, qlen))
+        self._run_jobs(jobs)
+        self._run_split_rounds(read_regions, codes)
+        self._finish_reads(read_regions, codes, out, cs, md)
+
+    def _bucket_len(self, n: int) -> int:
+        for b in self.cfg.length_buckets:
+            if n <= b:
+                return b
+        return _pow2_at_least(n, self.cfg.length_buckets[-1])
+
+    def _bt_enabled(self, A: int) -> bool:
+        """Device backtrack for every shape kernel K2 takes.  The JAX
+        package's B*A > 256*1024 gate is a TPU VMEM limit; on the card
+        the bound is K2's shared memory (A bytes of `used` flags), and
+        the CPU's plain version takes any shape."""
+        return self.device.type == "cpu" or backtrack_fits(A)
+
+    def fe_shapes(self, L: int, a_boost: int = 1, b_real: int = 0):
+        """Static device-batch shapes for the L bucket: (B, M, A).
+        Two batch shapes per bucket (tiny / full); full size scales
+        down for long-read buckets so [B, L] tensors stay bounded."""
+        w = self.index.w
+        full_B = max(8, _pow2_at_least(
+            max(self.cfg.device_batch_size * 1024 // L, 8)))
+        full_B = min(full_B, self.cfg.device_batch_size)
+        B = 8 if (
+            0 < b_real <= 8 and not self.cfg.single_batch_shape
+        ) else full_B
+        M = max(64, L // max(w // 2, 1))
+        A = max(256, int(L * self.cfg.anchors_per_base))
+        A = _pow2_at_least(A) * a_boost
+        return B, M, A
+
+    def _fe_kwargs(self, M: int, A: int, bt_cuts: int) -> dict:
+        od, mmo = self._seed_select_params()
+        return dict(
+            k=self.index.k, w=self.index.w, M=M, A=A,
+            chain_params=self._chain_params,
+            window=self.cfg.pallas_chain_window,
+            mid_occ=int(self.opt.mid_occ),
+            q_occ_frac=float(self.opt.q_occ_frac),
+            occ_dist=od, max_max_occ=mmo,
+            bt_k=self.cfg.backtrack_k, bt_cuts=bt_cuts,
+            min_cnt=self.opt.min_cnt, min_sc=self.opt.min_chain_score,
+        )
+
+    def _fe_submit_batch(self, codes_sel, L: int, B: int, M: int, A: int,
+                         bt_cuts: int):
+        """Stage + dispatch ONE fused front end (<= B reads of the L
+        bucket); returns (lens, handles) without waiting for the device.
+        On CUDA the upload comes from pinned memory, the chain table is
+        copied into pinned memory asynchronously, and an event recorded
+        after the copy tells _fe_collect when it has landed."""
+        if self.index.flag & 0x1:
+            raise NotImplementedError(HPC_TODO)
+        batch = np.full((B, L), 4, np.uint8)
+        lens = np.zeros(B, np.int32)
+        for bi, c in enumerate(codes_sel):
+            batch[bi, : len(c)] = c
+            lens[bi] = len(c)
+        kw = self._fe_kwargs(M, A, bt_cuts)
+        dev = self.dev
+        cuda = self.device.type == "cuda"
+        self.metrics.add("fe_batches", 1)
+        self.metrics.add("fe_reads", len(codes_sel))
+        # chain DP cell updates this dispatch: B*A anchors x window
+        self.metrics.add("chain_cells", float(B) * A * kw["window"])
+        with self.metrics.timer("front_end"):
+            codes_h = torch.from_numpy(batch)
+            lens_h = torch.from_numpy(lens)
+            if cuda:
+                codes_h, lens_h = codes_h.pin_memory(), lens_h.pin_memory()
+            codes_t = codes_h.to(self.device, non_blocking=True)
+            lens_t = lens_h.to(self.device, non_blocking=True)
+            chains, aux = front_end_bt(codes_t, lens_t, dev, **kw)
+            done = None
+            if cuda:
+                chains_h = torch.empty(chains.shape, dtype=chains.dtype,
+                                       pin_memory=True)
+                aux_h = torch.empty(aux.shape, dtype=aux.dtype,
+                                    pin_memory=True)
+                chains_h.copy_(chains, non_blocking=True)
+                aux_h.copy_(aux, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+                chains, aux = chains_h, aux_h
+
+        handles = _FrontEndHandles(chains, aux, done, (codes_h, lens_h))
+        return lens, handles
+
+    def _fe_collect(self, handles: _FrontEndHandles):
+        """Wait for a dispatched front end; (chains, aux) as numpy."""
+        if handles.done is not None:
+            handles.done.synchronize()
+        return handles.chains.numpy(), handles.aux.numpy()
+
+    def _map_bucket(
+        self,
+        L: int,
+        idxs: List[int],
+        codes: List[np.ndarray],
+        out: List[List[Region]],
+        cs: bool,
+        md: bool,
+        a_boost: int = 1,
+    ) -> None:
+        k = self.index.k
+        B, M, A = self.fe_shapes(L, a_boost=a_boost, b_real=len(idxs))
+        if not self._bt_enabled(A):
+            raise ValueError(
+                f"anchor budget A={A} exceeds what the device backtrack "
+                "kernel takes; the host-backtrack front end is not ported"
+            )
+        overflow_reads: List[int] = []
+        bt_cuts = min(8, L // self.SEG_LEN)
+
+        def stage_dispatch(chunk):
+            lens, handles = self._fe_submit_batch(
+                [codes[ri] for ri in chunk], L, B, M, A, bt_cuts
+            )
+            return chunk, lens, handles
+
+        def stage_process(state):
+            chunk, lens, handles = state
+            with self.metrics.timer("front_end"):
+                chains_np, aux = self._fe_collect(handles)
+            rep_len = aux[0]
+            for bi in np.nonzero(aux[1][: len(chunk)] > A)[0]:
+                overflow_reads.append(chunk[int(bi)])
+            fb = self._post_chain_native(
+                chunk, chains_np[: len(chunk)],
+                np.asarray(rep_len[: len(chunk)], np.int32),
+                codes, out, cs, md,
+            )
+            if fb is not None and not fb.any():
+                return
+            jobs: List[_ExtJob] = []
+            read_regions: List[Tuple[int, List[Region], int]] = []
+            for bi, ri in enumerate(chunk):
+                if fb is not None and not fb[bi]:
+                    continue
+                qlen = int(lens[bi])
+                regions = regions_from_compact(chains_np[bi], qlen, k)
+                set_parent(regions, self.opt.mask_level, self.opt.mask_len)
+                regions = select_sub(regions, self.opt.pri_ratio, self.opt.best_n)
+                read_regions.append((ri, regions, int(rep_len[bi])))
+                jobs.extend(self._make_jobs(regions, codes[ri], qlen))
+            self._run_jobs(jobs)
+            self._run_split_rounds(read_regions, codes)
+            self._finish_reads(read_regions, codes, out, cs, md)
+
+        # software pipeline: up to depth-1 dispatched batches in flight
+        # while one is processed on the host
+        depth = self.cfg.pipeline_depth
+        pending = deque()
+        for chunk_start in range(0, len(idxs), B):
+            pending.append(stage_dispatch(idxs[chunk_start : chunk_start + B]))
+            if len(pending) >= depth:
+                stage_process(pending.popleft())
+        while pending:
+            stage_process(pending.popleft())
+
+        if overflow_reads and a_boost < 16:
+            # reads whose seed hits overflowed the A budget were mapped
+            # from a truncated anchor set (minimap2 has no such cap) —
+            # remap them with a 4x budget, overwriting their results
+            self.metrics.add("anchor_overflow_retries", len(overflow_reads))
+            self._map_bucket(
+                L, overflow_reads, codes, out, cs, md, a_boost * 4
+            )
+
+    def _run_jobs(self, jobs: List[_ExtJob]) -> None:
+        """Extension jobs through the host C++ banded DP (the default
+        backend); the device backends are not ported."""
+        if not jobs:
+            return
+        from .. import native
+
+        backend = self.cfg.extension_backend
+        if backend in ("auto", "host") and native.available():
+            self._run_jobs_host(jobs)
+            return
+        raise NotImplementedError(EXT_TODO)
+
+    def _seed_select_params(self):
+        """Effective (occ_dist, max_max_occ) for seed thinning/rescue —
+        the mm_collect_matches gate `dist > 0 && max_max_occ > max_occ`
+        is resolved here on host (mid_occ is known after index load)
+        so the device graphs stay static."""
+        if (self.opt.occ_dist > 0
+                and self.opt.max_max_occ > self.opt.mid_occ):
+            return int(self.opt.occ_dist), int(self.opt.max_max_occ)
+        return 0, 0
+
+    MAX_SPLITS = 3
+
+    def _run_split_rounds(
+        self,
+        read_regions: List[Tuple[int, List[Region], int]],
+        codes: List[np.ndarray],
+    ) -> None:
+        """Resolve zdrop splits: regions whose mid alignment truncated
+        re-enter extension as (head, remainder) pairs until no segment
+        zdrops (bounded rounds); then attempt inversion rescue across
+        each split's gap (mm_align1_inv)."""
+        for _ in range(self.MAX_SPLITS + 1):
+            extra = self._split_zdropped(read_regions, codes)
+            if not extra:
+                break
+            self._run_jobs(extra)
+        self._inversion_rescue(read_regions, codes)
+
+    def _split_zdropped(
+        self,
+        read_regions: List[Tuple[int, List[Region], int]],
+        codes: List[np.ndarray],
+    ) -> List[_ExtJob]:
+        """mm_align1's zdrop chimeric/SV splitting: when a mid
+        segment's global DP fell more than zdrop below its running max
+        (ksw2 KSW_EZ_APPROX_DROP; /root/reference behavior behind
+        src/lib.rs:482 via the C core), the region ends at the max
+        cell and the remainder becomes a NEW region, re-extended with
+        its own left flank toward the break.  Returns the new
+        regions' extension jobs (caller runs them; a remainder can
+        itself split again, up to MAX_SPLITS rounds)."""
+        new_jobs: List[_ExtJob] = []
+        ref = self.index.ref_codes
+        offs = self.index.seq_offsets
+        for ri, regions, _rl in read_regions:
+            qlen = len(codes[ri])
+            add: List[Region] = []
+            for r in regions:
+                zd = getattr(r, "_mid_zdrop", None)
+                if not zd:
+                    continue
+                si = min(zd.keys())
+                qc, tc = zd[si]
+                segs = r._segs  # type: ignore[attr-defined]
+                q0, _q1, t0, _t1 = segs[si]
+                orig_re = r.re
+                orig_qe_a = r._qe_a  # type: ignore[attr-defined]
+                orig_right = getattr(r, "_right", (_EMPTY_OPS, 0, 0, 0))
+                part = r._mid_parts[si]  # type: ignore[attr-defined]
+                self.metrics.add("zdrop_splits", 1)
+                # --- head: truncate r at the max cell ---
+                if part is not None and len(part[0]):
+                    r._mid_parts = r._mid_parts[: si + 1]
+                    r.re = t0 + tc
+                    r._qe_a = q0 + qc
+                else:
+                    # dropped immediately: end at the segment boundary
+                    r._mid_parts = (
+                        r._mid_parts[:si] if si > 0 else [(_EMPTY_OPS, 0)]
+                    )
+                    r.re = t0
+                    r._qe_a = q0
+                r._segs = segs[: si + 1]
+                r._mid_zdrop = {}
+                r._right = (_EMPTY_OPS, 0, 0, 0)  # no extension past a drop
+                # --- remainder: new region from the next segment on ---
+                n_splits = getattr(r, "_n_splits", 0)
+                if si + 1 >= len(segs) or n_splits >= self.MAX_SPLITS:
+                    continue
+                qB0, tB0 = segs[si + 1][0], segs[si + 1][2]
+                if orig_qe_a <= qB0 or orig_re <= tB0:
+                    continue
+                frac = (orig_qe_a - qB0) / max(orig_qe_a - r._qs_a, 1)  # type: ignore[attr-defined]
+                rB = Region(
+                    rev=r.rev,
+                    rid=r.rid,
+                    qs=qB0 if r.rev == 0 else qlen - orig_qe_a,
+                    qe=orig_qe_a if r.rev == 0 else qlen - qB0,
+                    rs=tB0,
+                    re=orig_re,
+                    score=max(int(r.score * frac), 1),
+                    cnt=max(int(r.cnt * frac), 1),
+                    anchors_qpos=np.asarray([qB0, orig_qe_a - 1], np.int32),
+                    anchors_rpos=np.asarray([tB0, orig_re - 1], np.int32),
+                )
+                rB._q_al = r._q_al  # type: ignore[attr-defined]
+                rB._qs_a = qB0  # type: ignore[attr-defined]
+                rB._qe_a = orig_qe_a  # type: ignore[attr-defined]
+                rB._segs = segs[si + 1 :]  # type: ignore[attr-defined]
+                rB._n_mid = len(rB._segs)  # type: ignore[attr-defined]
+                rB._mid_parts = [None] * len(rB._segs)  # type: ignore[attr-defined]
+                rB._mid_zdrop = {}  # type: ignore[attr-defined]
+                rB._n_splits = n_splits + 1  # type: ignore[attr-defined]
+                rB._right = orig_right  # type: ignore[attr-defined]
+                rB._inv_prev = r  # type: ignore[attr-defined]
+                roff = int(offs[r.rid])
+                q_al = rB._q_al  # type: ignore[attr-defined]
+                for sj, (sq0, sq1, st0, st1) in enumerate(rB._segs):  # type: ignore[attr-defined]
+                    new_jobs.append(
+                        _ExtJob(
+                            rB, "mid",
+                            q_al[sq0:sq1],
+                            ref[roff + st0 : roff + st1],
+                            seg=sj,
+                        )
+                    )
+                # left flank back toward the break (bounded by the gap)
+                gap_q0 = r._qe_a  # type: ignore[attr-defined]
+                bw = min(self.opt.bw, self.flank_band // 2)
+                if qB0 > gap_q0:
+                    tl0 = min(tB0 - r.re, (qB0 - gap_q0) + bw)
+                    tl0 = max(tl0, 0)
+                    if tl0 > 0:
+                        new_jobs.append(
+                            _ExtJob(
+                                rB, "left",
+                                q_al[gap_q0:qB0][::-1],
+                                ref[roff + tB0 - tl0 : roff + tB0][::-1],
+                            )
+                        )
+                    else:
+                        rB._left = (_EMPTY_OPS, 0, 0, 0)  # type: ignore[attr-defined]
+                else:
+                    rB._left = (_EMPTY_OPS, 0, 0, 0)  # type: ignore[attr-defined]
+                add.append(rB)
+            regions.extend(add)
+        return new_jobs
+
+    def _inversion_rescue(
+        self,
+        read_regions: List[Tuple[int, List[Region], int]],
+        codes: List[np.ndarray],
+    ) -> None:
+        """mm_align1_inv semantics: for each zdrop-split (head,
+        remainder) pair with a gap on BOTH the query and the target,
+        align the reverse complement of the query gap against the
+        target gap (extension DP, zdrop_inv) under both anchorings —
+        gap-left against target-left, and both reversed — and, when
+        the better one clears min_dp_max, emit a new region on the
+        OPPOSITE strand covering the inverted segment.  This is the
+        small-inversion behavior behind every reference ``.map()``
+        (ksw path of /root/reference/src/lib.rs:482); only the host
+        extension path produces zdrop splits, so rescue runs there."""
+        from .. import native
+
+        if not native.available():
+            return
+        ref = self.index.ref_codes
+        offs = self.index.seq_offsets
+
+        def parts_ok(x) -> bool:
+            return hasattr(x, "_mid_parts") and all(
+                p is not None and len(p[0]) for p in x._mid_parts
+            )
+
+        cand = []
+        for ri, regions, _rl in read_regions:
+            qlen = len(codes[ri])
+            for rB in regions:
+                r = getattr(rB, "_inv_prev", None)
+                if r is None or not (parts_ok(r) and parts_ok(rB)):
+                    continue
+                lq = lt = 0
+                left = getattr(rB, "_left", None)
+                if left is not None:
+                    _, _, lq, lt = left
+                qg0, qg1 = r._qe_a, rB._qs_a - lq  # type: ignore[attr-defined]
+                tg0, tg1 = r.re, rB.rs - lt
+                QG, TG = qg1 - qg0, tg1 - tg0
+                if QG < 16 or TG < 16:
+                    continue
+                if QG > self.opt.max_gap or TG > self.opt.max_gap:
+                    continue
+                q_inv = _revcomp(np.asarray(r._q_al[qg0:qg1]))  # type: ignore[attr-defined]
+                roff = int(offs[r.rid])
+                tgap = np.asarray(ref[roff + tg0 : roff + tg1])
+                cand.append(
+                    (regions, r, qg0, qg1, tg0, tg1, q_inv, tgap, qlen)
+                )
+        if not cand:
+            return
+        with self.metrics.timer("extend"):
+            J = 2 * len(cand)
+            QS = max(len(c[6]) for c in cand)
+            TS = max(len(c[7]) for c in cand)
+            qb = np.full((J, QS), 4, np.uint8)
+            tb = np.full((J, TS), 4, np.uint8)
+            ql = np.zeros(J, np.int32)
+            tl = np.zeros(J, np.int32)
+            for ci, c in enumerate(cand):
+                q_inv, tgap = c[6], c[7]
+                qb[2 * ci, : len(q_inv)] = q_inv
+                qb[2 * ci + 1, : len(q_inv)] = q_inv[::-1]
+                tb[2 * ci, : len(tgap)] = tgap
+                tb[2 * ci + 1, : len(tgap)] = tgap[::-1]
+                ql[2 * ci] = ql[2 * ci + 1] = len(q_inv)
+                tl[2 * ci] = tl[2 * ci + 1] = len(tgap)
+            res = native.extend_banded_batch(
+                qb, tb, ql, tl, self.flank_band, self._ext_params,
+                self.opt.end_bonus, 1, zdrop=self.opt.zdrop_inv,
+            )
+            self.metrics.add("dp_cells", float(J) * (QS + TS - 1) * self.flank_band)
+        if res is None:
+            return
+        for ci, (regions, r, qg0, qg1, tg0, tg1, _qi, _tg, qlen) in enumerate(
+            cand
+        ):
+            ra, rb_ = res[2 * ci], res[2 * ci + 1]
+            use_b = rb_[1] > ra[1]
+            ops, sc, qc, tc, _z = rb_ if use_b else ra
+            if sc < self.opt.min_dp_max or qc < 16 or tc < 16:
+                continue
+            rev_i = 1 - r.rev
+            if use_b:
+                qs_a, qe_a = qlen - qg0 - qc, qlen - qg0
+                rs_i, re_i = tg1 - tc, tg1
+                ops = np.ascontiguousarray(ops[::-1])  # reversed DP frame
+            else:
+                qs_a, qe_a = qlen - qg1, qlen - qg1 + qc
+                rs_i, re_i = tg0, tg0 + tc
+            inv = Region(
+                rev=rev_i,
+                rid=r.rid,
+                qs=qs_a if rev_i == 0 else qlen - qe_a,
+                qe=qe_a if rev_i == 0 else qlen - qs_a,
+                rs=rs_i,
+                re=re_i,
+                score=max(1, sc // max(self.opt.a, 1)),
+                cnt=2,
+                anchors_qpos=np.asarray([qs_a, qe_a - 1], np.int32),
+                anchors_rpos=np.asarray([rs_i, re_i - 1], np.int32),
+            )
+            inv._q_al = _revcomp(np.asarray(r._q_al))  # type: ignore[attr-defined]
+            inv._qs_a, inv._qe_a = qs_a, qe_a  # type: ignore[attr-defined]
+            inv._segs = [(qs_a, qe_a, rs_i, re_i)]  # type: ignore[attr-defined]
+            inv._n_mid = 1  # type: ignore[attr-defined]
+            inv._mid_parts = [(ops, sc)]  # type: ignore[attr-defined]
+            inv._mid_zdrop = {}  # type: ignore[attr-defined]
+            inv._left = (_EMPTY_OPS, 0, 0, 0)  # type: ignore[attr-defined]
+            inv._right = (_EMPTY_OPS, 0, 0, 0)  # type: ignore[attr-defined]
+            regions.append(inv)
+            self.metrics.add("inv_rescues", 1)
+
+    def _finish_reads(
+        self,
+        read_regions: List[Tuple[int, List[Region], int]],
+        codes: List[np.ndarray],
+        out: List[List[Region]],
+        cs: bool,
+        md: bool,
+    ) -> None:
+        min_dp = self.opt.min_dp_max
+        groups = []
+        for ri, regions, rl in read_regions:
+            # a region survives only if EVERY mid segment aligned
+            # (an empty part would silently drop query/ref span)
+            done = [
+                r
+                for r in regions
+                if hasattr(r, "_mid_parts")
+                and all(x is not None and len(x[0]) for x in r._mid_parts)
+            ]
+            groups.append((ri, done, rl))
+        self._finalize_many(groups, codes, cs, md)
+        for ri, done, rl in groups:
+            # minimap2's min_dp_max: drop regions whose DP score is
+            # below the floor (the `min_dp_score` ctor kwarg)
+            done = [r for r in done if r.dp_score >= min_dp]
+            done.sort(key=lambda r: (r.parent != r.id, -r.dp_score))
+            out[ri] = done
+
+    def _post_chain_params(self):
+        """Cached (ip, dp) param blocks for native.post_chain_batch
+        (post_chain.cc IP_* layout)."""
+        blocks = getattr(self, "_pc_blocks", None)
+        if blocks is None:
+            p = self._ext_params
+            ip = np.array(
+                [
+                    self.index.k,                       # IP_SPAN
+                    self.opt.mask_len,
+                    self.opt.best_n,
+                    self.opt.min_dp_max,
+                    p.a, p.b, p.q, p.e, p.q2, p.e2,
+                    p.sc_ambi,
+                    self.opt.end_bonus,
+                    self.opt.zdrop,
+                    self.opt.min_chain_score,
+                    1 if (self.opt.flag & _MM_F_SR) else 0,
+                    min(self.opt.bw, self.flank_band // 2),  # IP_BW
+                    self.flank_band,
+                    self.cfg.mid_band_floor,
+                    self.cfg.mid_band_slack,
+                    self.SEG_LEN,
+                    0,                                  # IP_CIGCAP (wrapper)
+                ],
+                np.int32,
+            )
+            dp = np.array(
+                [self.opt.mask_level, self.opt.pri_ratio], np.float64
+            )
+            blocks = self._pc_blocks = (ip, dp)
+        return blocks
+
+    def _post_chain_native(
+        self,
+        chunk,
+        chains_np: np.ndarray,
+        rep_len: np.ndarray,
+        codes: List[np.ndarray],
+        out: List[List[Region]],
+        cs: bool,
+        md: bool,
+    ):
+        """Fused C++ post-chain (post_chain.cc): regions + selection +
+        extension + finalize + mapq for the whole batch in ONE native
+        call, writing finished Region lists into `out`.  Returns the
+        per-read fallback mask (reads the caller must remap through the
+        Python path: zdrop splits -> inversion rescue, cap overflows),
+        or None when the fast path does not apply (splice presets, a
+        non-host extension backend, missing native lib)."""
+        from .. import native
+
+        if (
+            not self.cfg.post_chain_native
+            or not native.available()
+        ):
+            return None
+        backend = self.cfg.extension_backend
+        if backend == "auto":
+            backend = "host"
+        if backend != "host":
+            return None
+        ip, dpar = self._post_chain_params()
+        codes_list = [codes[ri] for ri in chunk]
+        with self.metrics.timer("extend"):
+            res = native.post_chain_batch(
+                chains_np, codes_list, rep_len,
+                self.index.ref_codes,
+                self.index.seq_offsets, self.index.seq_lens,
+                ip, dpar, cs, md,
+            )
+        if res is None:
+            return None
+        (nreg, fields, cig, ncig, cs_get, md_get, fallback, stats,
+         raw_tags) = res
+        self.metrics.add("dp_cells", float(stats[0]))
+        self.metrics.add("post_chain_fallbacks", float(fallback.sum()))
+        with self.metrics.timer("finalize"):
+            for bi, ri in enumerate(chunk):
+                if fallback[bi]:
+                    continue
+                n = int(nreg[bi])
+                regs: List[Region] = []
+                if n:
+                    rows = fields[bi, :n].tolist()
+                    for oi, f in enumerate(rows):
+                        r = Region(
+                            rev=f[0], rid=f[1], qs=f[2], qe=f[3],
+                            rs=f[4], re=f[5], score=f[6], cnt=f[7],
+                            anchors_qpos=_EMPTY_OPS,
+                            anchors_rpos=_EMPTY_OPS,
+                        )
+                        r.id = f[8]
+                        r.parent = f[9]
+                        r.subsc = f[10]
+                        r.n_sub = f[11]
+                        r.dp_score = r.dp_max = f[12]
+                        r.dp_max2 = f[13]
+                        r.mapq = f[14]
+                        r.mlen = f[15]
+                        r.blen = f[16]
+                        r.nm = f[17]
+                        r.cigar = cig[bi, oi, : ncig[bi, oi]].copy()
+                        if cs:
+                            r.cs = cs_get(bi, oi)
+                        if md:
+                            r.md = md_get(bi, oi)
+                        regs.append(r)
+                out[ri] = regs
+        return fallback
+
+    def _make_jobs(
+        self, regions: List[Region], codes: np.ndarray, qlen: int
+    ) -> List[_ExtJob]:
+        """Build left/mid/right extension jobs per region (mm_align1
+        structure, single global mid instead of per-anchor segments)."""
+        jobs: List[_ExtJob] = []
+        ref = self.index.ref_codes
+        offs = self.index.seq_offsets
+        # flank ref overhang: the static band covers gaps up to ~W/2,
+        # so a wider ref window than q + W/2 is unreachable anyway
+        bw = min(self.opt.bw, self.flank_band // 2)
+        for r in regions:
+            q_al = codes if r.rev == 0 else _revcomp(codes)
+            qs_a = r.qs if r.rev == 0 else qlen - r.qe
+            qe_a = r.qe if r.rev == 0 else qlen - r.qs
+            r._q_al = q_al  # type: ignore[attr-defined]
+            r._qs_a, r._qe_a = qs_a, qe_a  # type: ignore[attr-defined]
+            roff = int(offs[r.rid])
+            rlen = int(self.index.seq_lens[r.rid])
+            # middle: global over the chained span.  Long regions are
+            # split at chain anchors (minimap2's per-segment alignment)
+            # so the band stays narrow regardless of read length.
+            segs = self._mid_segments(r, qs_a, qe_a)
+            r._segs = segs  # type: ignore[attr-defined]
+            r._n_mid = len(segs)  # type: ignore[attr-defined]
+            r._mid_parts = [None] * len(segs)  # type: ignore[attr-defined]
+            r._mid_zdrop = {}  # type: ignore[attr-defined]
+            for si, (q0, q1, t0, t1) in enumerate(segs):
+                jobs.append(
+                    _ExtJob(
+                        r, "mid",
+                        q_al[q0:q1],
+                        ref[roff + t0 : roff + t1],
+                        seg=si,
+                    )
+                )
+            # left flank: reversed extension toward query start
+            if qs_a > 0:
+                tl0 = min(r.rs, qs_a + bw)
+                if tl0 > 0:
+                    jobs.append(
+                        _ExtJob(
+                            r,
+                            "left",
+                            q_al[:qs_a][::-1],
+                            ref[roff + r.rs - tl0 : roff + r.rs][::-1],
+                        )
+                    )
+                else:
+                    r._left = (_EMPTY_OPS, 0, 0, 0)  # type: ignore[attr-defined]
+            else:
+                r._left = (_EMPTY_OPS, 0, 0, 0)  # type: ignore[attr-defined]
+            # right flank
+            if qe_a < qlen:
+                tl1 = min(rlen - r.re, (qlen - qe_a) + bw)
+                if tl1 > 0:
+                    jobs.append(
+                        _ExtJob(
+                            r, "right", q_al[qe_a:], ref[roff + r.re : roff + r.re + tl1]
+                        )
+                    )
+                else:
+                    r._right = (_EMPTY_OPS, 0, 0, 0)  # type: ignore[attr-defined]
+            else:
+                r._right = (_EMPTY_OPS, 0, 0, 0)  # type: ignore[attr-defined]
+        return jobs
+
+    SEG_LEN = 384  # target query length per mid segment
+
+    def _mid_segments(self, r: Region, qs_a: int, qe_a: int):
+        """Split the chained span at anchors every ~SEG_LEN query bases.
+
+        Anchors are exact k-mer matches, so cutting the global DP at an
+        anchor's end cell is lossless for any near-optimal alignment
+        (mm_align1 aligns anchor-to-anchor the same way)."""
+        span = qe_a - qs_a
+        if span <= 2 * self.SEG_LEN or len(r.anchors_qpos) < 3:
+            return [(qs_a, qe_a, r.rs, r.re)]
+        segs = []
+        q_prev, t_prev = qs_a, r.rs
+        last_q = int(r.anchors_qpos[0])
+        for aq, at_ in zip(r.anchors_qpos[1:-1], r.anchors_rpos[1:-1]):
+            aq, at_ = int(aq), int(at_)
+            if aq - last_q >= self.SEG_LEN and aq + 1 - q_prev > 0:
+                # cut AFTER this anchor's end cell (inclusive)
+                if aq + 1 > q_prev and at_ + 1 > t_prev:
+                    segs.append((q_prev, aq + 1, t_prev, at_ + 1))
+                    q_prev, t_prev = aq + 1, at_ + 1
+                    last_q = aq
+        segs.append((q_prev, qe_a, t_prev, r.re))
+        return [s for s in segs if s[1] > s[0] and s[3] > s[2]]
+
+    # ------------------------------------------------------------------
+    def _mid_band(self, drift: int) -> int:
+        """Band width for an anchored mid segment: the known diagonal
+        drift plus wander slack, 32-lane quantized (see
+        AlignerConfig.mid_band_floor/_slack)."""
+        need = 32 * ((drift + self.cfg.mid_band_slack + 31) // 32)
+        return max(self.cfg.mid_band_floor, need)
+
+    def _run_jobs_host(self, jobs: List[_ExtJob]) -> None:
+        """All extension jobs through the C++ banded DP: ONE native
+        call per job batch, per-job band/mode over concatenated
+        buffers (extend_jobs_batch)."""
+        from .. import native
+
+        with self.metrics.timer("extend"):
+            sel: List[_ExtJob] = []
+            Wv: List[int] = []
+            modev: List[int] = []
+            cells = 0.0
+            for j in jobs:
+                ql, tl = len(j.q), len(j.t)
+                if ql == 0 or tl == 0:
+                    self._store_empty(j)
+                    continue
+                # same band rule as _run_jobs (see comment there)
+                if j.kind == "mid":
+                    W = self._mid_band(abs(ql - tl))
+                    modev.append(2)
+                else:
+                    W = self.flank_band
+                    modev.append(1)
+                Wv.append(W)
+                sel.append(j)
+                cells += float(ql + tl - 1) * W
+            if not sel:
+                return
+            res = native.extend_jobs_batch(
+                [j.q for j in sel], [j.t for j in sel],
+                np.asarray(Wv, np.int32), np.asarray(modev, np.int32),
+                self._ext_params, self.opt.end_bonus,
+                zdrop=self.opt.zdrop,
+            )
+            self.metrics.add("dp_cells", cells)
+            if res is None:
+                for j in sel:
+                    self._store_empty(j)
+                return
+            for j, mode, (ops, sc, qc, tc, zflag) in zip(sel, modev, res):
+                if mode == 2:
+                    j.region._mid_parts[j.seg] = (ops, sc)  # type: ignore[attr-defined]
+                    if zflag:
+                        # alignment truncated at the running-max
+                        # cell: record the consumed spans so the
+                        # caller splits the region (mm_align1's
+                        # zdrop chimeric-split semantics)
+                        j.region._mid_zdrop[j.seg] = (qc, tc)  # type: ignore[attr-defined]
+                elif len(ops) or sc > 0:
+                    setattr(j.region, f"_{j.kind}", (ops, sc, qc, tc))
+                else:
+                    self._store_empty(j)
+
+    def _store_empty(self, job: _ExtJob) -> None:
+        r = job.region
+        if job.kind == "mid":
+            r._mid_parts[job.seg] = (_EMPTY_OPS, 0)  # type: ignore[attr-defined]
+        elif job.kind == "left":
+            r._left = (_EMPTY_OPS, 0, 0, 0)  # type: ignore[attr-defined]
+        else:
+            r._right = (_EMPTY_OPS, 0, 0, 0)  # type: ignore[attr-defined]
+
+    # ------------------------------------------------------------------
+    def _finalize_many(
+        self,
+        groups: List[Tuple[int, List[Region], int]],
+        codes: List[np.ndarray],
+        cs: bool,
+        md: bool,
+    ) -> None:
+        """Finalize every surviving region of a device batch at once:
+        one python coordinate pass, ONE native finalize_batch call
+        (CIGAR merge + stats + cs/MD for all regions of all reads),
+        then the per-read set_parent/set_mapq tails.  Per-read native
+        calls were the dominant host cost at high read rates (ctypes
+        crossing + string buffer churn per read)."""
+        with self.metrics.timer("finalize"):
+            self._finalize_many_impl(groups, codes, cs, md)
+
+    def _finalize_many_impl(
+        self,
+        groups: List[Tuple[int, List[Region], int]],
+        codes: List[np.ndarray],
+        cs: bool,
+        md: bool,
+    ) -> None:
+        from .. import native
+
+        ref = self.index.ref_codes
+        offs = self.index.seq_offsets
+        # pass 1 (pure python, cheap): final coords + part lists.
+        # Part CIGARs arrive packed (int32 len<<4|op) from the
+        # extension engines; they stay packed into the native finalize.
+        flat: List[Region] = []
+        all_parts: List[np.ndarray] = []
+        part_rev: List[int] = []
+        reg_off: List[int] = [0]
+        qsegs: List[np.ndarray] = []
+        t_off_l: List[int] = []
+        t_len_l: List[int] = []
+        for ri, regions, _rl in groups:
+            qlen = len(codes[ri])
+            for r in regions:
+                parts = getattr(r, "_mid_parts", [(_EMPTY_OPS, 0)])
+                mid_sc = sum(sc for _, sc in parts)
+                left = getattr(r, "_left", (_EMPTY_OPS, 0, 0, 0))
+                right = getattr(r, "_right", (_EMPTY_OPS, 0, 0, 0))
+                lc, lsc, lq, lt = left
+                rc, rsc, rq, rt = right
+                r.dp_score = mid_sc + lsc + rsc
+                r.dp_max = r.dp_score
+                qs_a, qe_a = r._qs_a, r._qe_a  # type: ignore[attr-defined]
+                r.q_st_a = qs_a - lq
+                r.q_en_a = qe_a + rq
+                r.r_st = r.rs - lt
+                r.r_en = r.re + rt
+                all_parts.append(lc)
+                part_rev.append(1)  # left flank was walked outward
+                for c, _ in parts:
+                    all_parts.append(c)
+                    part_rev.append(0)
+                all_parts.append(rc)
+                part_rev.append(0)
+                reg_off.append(len(all_parts))
+                q_al = r._q_al  # type: ignore[attr-defined]
+                roff = int(offs[r.rid])
+                qsegs.append(q_al[r.q_st_a : r.q_en_a])
+                t_off_l.append(roff + r.r_st)
+                t_len_l.append(r.r_en - r.r_st)
+                # read-forward query coords
+                if r.rev == 0:
+                    r.qs, r.qe = r.q_st_a, r.q_en_a
+                else:
+                    r.qs, r.qe = qlen - r.q_en_a, qlen - r.q_st_a
+                r.rs, r.re = r.r_st, r.r_en
+                flat.append(r)
+        t_off = np.asarray(t_off_l, np.int64)
+        t_len = np.asarray(t_len_l, np.int64)
+        # pass 2: merge + stats + cs/MD for the whole region batch in
+        # one native call (or the python oracle if the lib is absent)
+        res = (
+            native.finalize_batch(
+                [cig.pack_ops(p) for p in all_parts],
+                np.asarray(part_rev, np.uint8),
+                np.asarray(reg_off, np.int32),
+                qsegs, ref, t_off, t_len, cs, md,
+            )
+            if flat and native.available() else None
+        )
+        if res is not None:
+            merged, stats, cs_strs, md_strs = res
+            for gi, r in enumerate(flat):
+                # keep the native merge's packed int32 ops: Mapping
+                # unpacks lazily, and packed arrays cross the worker-
+                # process pipe far cheaper than [(n,op)] tuple lists
+                r.cigar = merged[gi]
+                r.mlen, r.blen, r.nm = (
+                    int(stats[gi, 0]), int(stats[gi, 1]), int(stats[gi, 2])
+                )
+                if cs:
+                    r.cs = cs_strs[gi]
+                if md:
+                    r.md = md_strs[gi]
+        else:
+            for gi, r in enumerate(flat):
+                parts_l = [
+                    cig.unpack_ops(p)
+                    for p in all_parts[reg_off[gi] : reg_off[gi + 1]]
+                ]
+                full = cig.merge_cigars(
+                    [cig.reverse_cigar(parts_l[0])] + parts_l[1:]
+                )
+                r.cigar = full
+                qseg = qsegs[gi]
+                tseg = ref[int(t_off[gi]) : int(t_off[gi] + t_len[gi])]
+                r.mlen, r.blen, r.nm = cig.cigar_stats(full, qseg, tseg)
+                if cs:
+                    r.cs = cig.gen_cs(full, qseg, tseg)
+                if md:
+                    r.md = cig.gen_md(full, qseg, tseg)
+        for _ri, regions, rep_len in groups:
+            # minimap2 re-runs mm_set_parent on ALIGNED coordinates
+            # before mm_set_mapq (extension can shift qs/qe enough to
+            # change the primary/secondary partition) — mirror that.
+            set_parent(regions, self.opt.mask_level, self.opt.mask_len)
+            # dp_max2: best DP score among each primary's secondaries —
+            # the DP-branch discriminator in mm_set_mapq
+            by_id = {r.id: r for r in regions}
+            for r in regions:
+                r.dp_max2 = 0
+            for r in regions:
+                if r.parent != r.id:
+                    parent = by_id.get(r.parent)
+                    if parent is not None and r.dp_score > parent.dp_max2:
+                        parent.dp_max2 = r.dp_score
+            set_mapq(
+                regions, self.opt, rep_len=rep_len,
+                is_sr=bool(self.opt.flag & _MM_F_SR),
+            )
+
+
+def _revcomp(codes: np.ndarray) -> np.ndarray:
+    return np.where(codes < 4, 3 - codes, codes).astype(np.uint8)[::-1]

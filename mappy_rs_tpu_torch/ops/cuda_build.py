@@ -1,0 +1,102 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu).
+
+The kernels are compiled by ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, in the package's gitignored build
+directory, on first use, and loaded with ctypes.  Nothing here runs at
+import time: this module imports on machines without nvcc or a card.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; the wrappers (ops/chain_kernel.py,
+ops/backtrack.py) raise when that is not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+SOURCES = ("chain.cu", "backtrack.cu")
+BUILD_DIR = os.path.join(_PKG, "_build")
+_SO = os.path.join(BUILD_DIR, "libmappy_kernels.so")
+# -fmad=false: K1's float32 gap penalty must not be contracted into FMAs
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+]
+#: dynamic shared memory a block may use on Hopper (227 KB)
+SMEM_LIMIT = 232448
+
+_lib: Optional[ctypes.CDLL] = None
+_mu = threading.Lock()
+#: seconds the last build took (0.0 when the library was already built)
+build_seconds = 0.0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _stale() -> bool:
+    if not os.path.exists(_SO):
+        return True
+    t = os.path.getmtime(_SO)
+    return any(os.path.getmtime(os.path.join(CSRC, s)) > t for s in SOURCES)
+
+
+def build() -> str:
+    """Compile the kernels (if the library is missing or stale); returns
+    the library path.  Raises with nvcc's output on failure."""
+    global build_seconds
+    if not _stale():
+        return _SO
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{_SO}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(os.path.join(CSRC, s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+            f"{res.stdout}\n{res.stderr}"
+        )
+    os.replace(tmp, _SO)
+    build_seconds = time.perf_counter() - t0
+    return _SO
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use (thread-safe)."""
+    global _lib
+    with _mu:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.chain_dp.restype = ci
+            lib.chain_dp.argtypes = (
+                [vp] * 6 + [ci] * 6 + [cf, cf, ci] + [vp, vp, vp]
+            )
+            lib.backtrack_chains.restype = ci
+            lib.backtrack_chains.argtypes = [vp] * 8 + [ci] * 6 + [vp, vp]
+            _lib = lib
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def stream_handle(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

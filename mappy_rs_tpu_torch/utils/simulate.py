@@ -1,0 +1,90 @@
+"""Simulated test data: a random genome and nanopore-like reads.
+
+``simulate`` is a copy of the JAX package's bench.py ``simulate`` (numpy
+only), so the port's tests and chip_smoke.py make their data from a
+seed without anything outside this package.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def random_genome(rng, n: int) -> str:
+    """n uniformly random ACGT bases."""
+    return np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)].tobytes().decode()
+
+
+def simulate(rng, genome: str, n: int, length: int, err: float):
+    """Nanopore-like reads: i.i.d. substitutions / insertions /
+    deletions at `err` (60/20/20 split), half the reads
+    reverse-complemented.  Vectorized (numpy) so large N stays cheap."""
+    g = np.frombuffer(genome.encode(), np.uint8)
+    W = length + 64  # template window: deletions consume extra chars
+    starts = rng.integers(0, len(genome) - W, n)
+    tmpl = g[starts[:, None] + np.arange(W)]  # [n, W] ASCII
+    r = rng.random((n, W))
+    # substitutions: rotate within ACGT so the base always changes
+    code = np.zeros(256, np.uint8)
+    code[ord("C")], code[ord("G")], code[ord("T")] = 1, 2, 3
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    sub = r < err * 0.6
+    rot = rng.integers(1, 4, (n, W), dtype=np.uint8)
+    subbed = np.where(sub, acgt[(code[tmpl] + rot) & 3], tmpl)
+    ins = (r >= err * 0.6) & (r < err * 0.8)
+    dele = (r >= err * 0.8) & (r < err)
+    ins_char = acgt[rng.integers(0, 4, (n, W), dtype=np.uint8)]
+    comp = np.zeros(256, np.uint8)
+    for a, b in zip(b"ACGT", b"TGCA"):
+        comp[a] = b
+    rc = rng.random(n) < 0.5
+    reads = []
+    cap = length + 24  # keep every read in one device bucket
+    for i in range(n):
+        keep = ~dele[i]  # ins implies keep (bands are disjoint)
+        base = subbed[i][keep]
+        insertions = ins_char[i][ins[i]]
+        if insertions.size:
+            # np.insert indexes the PRE-insertion array: the slot
+            # after kept char j is cumsum(keep)[j]
+            at = np.cumsum(keep)[ins[i]]
+            out = np.insert(base, at, insertions)
+        else:
+            out = base
+        out = out[:cap]
+        if rc[i]:
+            out = comp[out[::-1]]
+        reads.append(out.tobytes().decode())
+    return reads, [int(s) for s in starts]
+
+
+def sweep_anchors(rng, B: int, A: int, bw: int, span: int = 15,
+                  device="cpu") -> dict:
+    """Sorted synthetic chaining anchors [B, A] whose pair gaps sweep
+    the chain DP's gates: dense diagonal runs whose offsets jump by up
+    to bw+2 (so |dr-dq| covers 0..bw and just past it), reference steps
+    that now and then exceed the 5 kb distance gate, two strands, three
+    contigs, spans mostly `span` (some 10..20), and a ragged invalid
+    tail.  Returns int32 rev/rid/rpos/qpos/span and bool valid."""
+    import torch
+
+    n_valid = rng.integers(A // 2, A + 1, B)
+    n_valid[0] = A
+    valid = np.arange(A)[None, :] < n_valid[:, None]
+    rev = rng.integers(0, 2, (B, A))
+    rid = rng.integers(0, 3, (B, A))
+    step = np.where(rng.random((B, A)) < 0.97, rng.integers(0, 40, (B, A)),
+                    rng.integers(0, 6000, (B, A)))
+    rpos = np.cumsum(step, axis=1)
+    jump = np.where(rng.random((B, A)) < 0.05,
+                    rng.integers(-(bw + 2), bw + 3, (B, A)), 0)
+    qpos = rpos + np.cumsum(jump, axis=1) + rng.integers(-3, 4, (B, A))
+    spans = np.where(rng.random((B, A)) < 0.9, span,
+                     rng.integers(10, 21, (B, A)))
+    for b in range(B):
+        o = np.lexsort((qpos[b], rpos[b], rid[b], rev[b]))
+        rev[b], rid[b], rpos[b], qpos[b] = rev[b][o], rid[b][o], rpos[b][o], qpos[b][o]
+    out = {n: torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(device)
+           for n, v in (("rev", rev), ("rid", rid), ("rpos", rpos),
+                        ("qpos", qpos), ("span", spans))}
+    out["valid"] = torch.from_numpy(valid).to(device)
+    return out

@@ -1,0 +1,223 @@
+"""The PyTorch port's slice as a whole, held against the JAX package.
+
+On a 2 Mbp random genome made from a seed: the port's fused front end
+(sketch -> lookup -> chain DP -> backtrack) gives the JAX package's
+``_front_end_bt(..., use_pallas=True)`` chain table exactly (Pallas
+kernels in interpret mode), and ``Aligner(seq=..., device="cpu")``
+gives ``mappy_rs_tpu.Aligner(seq=...)``'s Mappings field for field.
+Also: the reference's error strings, the explicit device (no silent
+CPU fallback), the NotImplementedError of every unported entry point,
+and that importing the port leaves jax and the JAX package unloaded.
+"""
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import mappy_rs_tpu
+from mappy_rs_tpu.models.pipeline import _front_end_bt
+from mappy_rs_tpu.ops.chain import ChainParams as JaxChainParams
+
+import mappy_rs_tpu_torch
+from mappy_rs_tpu_torch.config import AlignerConfig
+from mappy_rs_tpu_torch.models.pipeline import front_end_bt
+from mappy_rs_tpu_torch.utils.seqcodes import encode
+from mappy_rs_tpu_torch.utils.simulate import random_genome, simulate
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.default_rng(7)
+    genome = random_genome(rng, 2_000_000)
+    reads, starts = simulate(rng, genome, 64, 1000, 0.05)
+    return genome, reads, starts
+
+
+@pytest.fixture(scope="module")
+def aligners(data):
+    genome = data[0]
+    return (mappy_rs_tpu_torch.Aligner(seq=genome, device="cpu"),
+            mappy_rs_tpu.Aligner(seq=genome))
+
+
+def _fields(m):
+    """Every Mapping field (the strand by value: the two packages have
+    their own Strand enums)."""
+    return tuple(
+        getattr(m, "cigar" if s == "_cig" else "strand" if s == "_strand" else s)
+        for s in m.__slots__
+    )
+
+
+def test_front_end_chain_table_matches_jax(data, aligners):
+    _genome, reads, _starts = data
+    tal, jal = aligners
+    eng, jeng = tal._engine, jal._engine
+    B, M, A = eng.fe_shapes(1024, b_real=32)
+    codes = np.full((B, 1024), 4, np.uint8)
+    lens = np.zeros(B, np.int32)
+    for i, r in enumerate(reads[:32]):
+        c = encode(r)
+        codes[i, : len(c)] = c
+        lens[i] = len(c)
+    kw = eng._fe_kwargs(M, A, 2)
+    chains, aux = front_end_bt(torch.from_numpy(codes),
+                               torch.from_numpy(lens), eng.dev, **kw)
+
+    jd = jeng.dev
+    od, mmo = jeng._seed_select_params()
+    assert (od, mmo) == (kw["occ_dist"], kw["max_max_occ"]) == (500, 4095)
+    jchains, jaux = _front_end_bt(
+        jnp.asarray(codes), jnp.asarray(lens), jnp.asarray(lens),
+        None, None, None,
+        jd.key_hi, jd.key_lo, jd.offcnt, jd.pos_rp, jd.bucket_start,
+        jd.hash_rows, jd.hash_val, jnp.int32(jd.n_keys),
+        jnp.int32(jeng.opt.mid_occ), 15, 10, M, A,
+        JaxChainParams(*eng._chain_params), 32, True,
+        float(jeng.opt.q_occ_frac), 8, 2, jeng.opt.min_cnt,
+        jeng.opt.min_chain_score, pallas_window=128, occ_dist=od,
+        max_max_occ=mmo, keys32=jd.keys32, hash_bits=jd.hash_bits,
+        hash_shift=jd.hash_shift,
+    )
+    np.testing.assert_array_equal(chains.numpy(), np.asarray(jchains))
+    np.testing.assert_array_equal(aux.numpy(), np.asarray(jaux))
+    assert (chains.numpy()[:32, 0, 0] >= 0).all()  # every read chained
+
+
+def test_aligner_map_matches_jax(data, aligners):
+    _genome, reads, starts = data
+    tal, jal = aligners
+    for r in reads[:6]:
+        got = tal.map(r, cs=True, MD=True)
+        want = jal.map(r, cs=True, MD=True)
+        assert [_fields(m) for m in got] == [_fields(m) for m in want]
+        assert got
+
+
+def test_map_batch_matches_jax_and_places_reads(data, aligners):
+    _genome, reads, starts = data
+    tal, jal = aligners
+    payload = [{"i": i, "seq": s} for i, s in enumerate(reads)]
+    out = {}
+    for name, al in (("port", tal), ("jax", jal)):
+        al.enable_threading(2)
+        try:
+            out[name] = {d["i"]: [_fields(m) for m in ms]
+                         for ms, d in al.map_batch(payload)}
+        finally:
+            al.enable_threading(0)
+    assert out["port"] == out["jax"]
+    placed = sum(
+        1 for i, s in enumerate(starts)
+        if out["port"][i] and abs(out["port"][i][0][5] - s) < 100
+    )
+    assert placed == len(reads)
+
+
+def test_anchor_overflow_retry_matches_wide_budget():
+    """Reads from a 4-copy segmental duplication overflow the A=256
+    anchor budget; the engine remaps them with a 4x budget, and the
+    result equals mapping with that budget from the start."""
+    rng = np.random.default_rng(3)
+    unit = np.frombuffer(random_genome(rng, 3000).encode(), np.uint8)
+    copies = []
+    for _ in range(4):  # 1% substitutions per copy
+        c = unit.copy()
+        hit = rng.random(len(c)) < 0.01
+        c[hit] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, hit.sum())]
+        copies.append(random_genome(rng, 5000) + c.tobytes().decode())
+    genome = "".join(copies) + random_genome(rng, 5000)
+    reads = [genome[5000 + 200 + 8000 * i: 5000 + 1200 + 8000 * i]
+             for i in range(3)]
+    al = mappy_rs_tpu_torch.Aligner(seq=genome, device="cpu")
+    wide = mappy_rs_tpu_torch.Aligner(seq=genome, device="cpu")
+    wide._engine.cfg.anchors_per_base = 1.0  # A = 1024 for 1 kb reads
+    got = [al.map(r, cs=True) for r in reads]
+    assert al.metrics.get("anchor_overflow_retries", 0) >= len(reads)
+    want = [wide.map(r, cs=True) for r in reads]
+    assert wide.metrics.get("anchor_overflow_retries", 0) == 0
+    assert [[_fields(m) for m in ms] for ms in got] == [
+        [_fields(m) for m in ms] for ms in want]
+    assert all(ms for ms in got)
+
+
+def test_map_batch_error_strings(aligners):
+    tal, _ = aligners
+    with pytest.raises(RuntimeError, match="Multi threading not enabled"):
+        tal.map_batch([{"seq": "ACGT"}])
+    tal.enable_threading(1)
+    try:
+        with pytest.raises(KeyError) as ei:
+            tal.map_batch([{"id": 1}])
+        assert ei.value.args[0] == (
+            "AHHH Key 🗝️  not found in iterated dictionary")
+        with pytest.raises(TypeError, match="Element in iterable is not a dictionary"):
+            tal.map_batch(["ACGT"])
+        with pytest.raises(TypeError, match="Unsupported batch type"):
+            tal.map_batch({"seq": "ACGT"})
+    finally:
+        tal.enable_threading(0)
+    with pytest.raises(RuntimeError, match="Did not create or open an index"):
+        mappy_rs_tpu_torch.Aligner(device="cpu")
+    with pytest.raises(NotImplementedError, match="seq2"):
+        tal.map("ACGT", seq2="ACGT")
+
+
+def test_cuda_device_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        mappy_rs_tpu_torch.Aligner(seq="ACGT" * 100)  # device="cuda"
+    assert AlignerConfig().device == "cuda"
+
+
+def test_unported_entry_points_raise(data, aligners):
+    genome = data[0]
+    tal, _ = aligners
+    for call in (tal.enable_mesh, tal.enable_sharding,
+                 lambda: tal.map_batch_positions(["ACGT"])):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+    tal._config.worker_processes = 2
+    try:
+        with pytest.raises(NotImplementedError, match="worker processes"):
+            tal.enable_threading(2)
+    finally:
+        tal._config.worker_processes = 0
+    with pytest.raises(NotImplementedError, match="splice"):
+        mappy_rs_tpu_torch.Aligner(seq=genome[:50_000], preset="splice",
+                                   device="cpu")
+    al = mappy_rs_tpu_torch.Aligner(seq=genome[:50_000], device="cpu")
+    al._engine.cfg.extension_backend = "device"
+    al._engine.cfg.post_chain_native = False
+    with pytest.raises(NotImplementedError, match="extension"):
+        al.map(genome[1000:2000])
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, mappy_rs_tpu_torch, mappy_rs_tpu_torch.models.pipeline, "
+        "mappy_rs_tpu_torch.ops.cuda_build; "
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'mappy_rs_tpu' or m.startswith('mappy_rs_tpu.')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    pat = re.compile(r"^\s*(import|from)\s+(jax|mappy_rs_tpu)\b")
+    pkg = os.path.join(ROOT, "mappy_rs_tpu_torch")
+    for dirpath, _dirs, files in os.walk(pkg):
+        for fn in files:
+            if fn.endswith(".py"):
+                with open(os.path.join(dirpath, fn)) as fh:
+                    for line in fh:
+                        assert not pat.match(line), (fn, line)
