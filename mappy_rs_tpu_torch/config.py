@@ -271,14 +271,23 @@ class AlignerConfig:
     # need more than 128 (tests/test_chain_window.py).  The name is the
     # JAX package's, whose Pallas kernel takes the same window.
     pallas_chain_window: int = 128
-    # extension engine: "auto" | "host" (C++ banded DP).  The device
-    # backends of the JAX package ("device", "device_dl") are not
-    # ported and raise.  Overridable with MAPPY_RS_TPU_EXTENSION.
+    # extension engine: "auto" | "host" | "device" | "device_dl".
+    #   host      — C++ banded DP + walk (identical results to the kernels)
+    #   device    — fully on cfg.device: DP kernel K3 (csrc/extend.cu) then
+    #               traceback kernel K4 (csrc/traceback.cu); only the packed
+    #               CIGAR table comes back to the host
+    #   device_dl — K3 on cfg.device, the direction bytes downloaded and
+    #               walked on the host (C++ traceback_batch)
+    #   auto      — host when the native lib is built, else device_dl
+    # Overridable per-process with MAPPY_RS_TPU_EXTENSION.
     extension_backend: str = field(
         default_factory=lambda: os.environ.get(
             "MAPPY_RS_TPU_EXTENSION", "auto"
         )
     )
+    # [J, OPS] CIGAR table width of the device traceback (jobs whose
+    # run-length CIGAR overflows re-run on the host engine)
+    traceback_max_ops: int = 128
     # fused C++ post-chain record emission (native/post_chain.cc):
     # regions + selection + extension + finalize + mapq in one native
     # call per batch.  False forces the stage-by-stage Python path

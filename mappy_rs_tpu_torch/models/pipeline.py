@@ -4,7 +4,10 @@ Drives the map path the reference reaches through
 ``minimap2::Aligner::map``: sketch -> seed lookup -> chaining DP ->
 chain backtrack on the device (one fused front end per batch,
 ``front_end_bt``), then the host C++ post-chain (regions, banded
-extension, CIGAR/cs/MD, mapq) on the downloaded chain table.
+extension, CIGAR/cs/MD, mapq) on the downloaded chain table.  With
+``cfg.extension_backend`` "device" or "device_dl" the banded extension
+runs on the device instead (kernel K3, plus K4 for "device"), under the
+Python post-chain (regions, jobs, split rounds, finalize).
 
 Batching: reads are length-bucketed and padded so every device stage
 runs on [B, L] tensors of a few static shapes.  Each bucket runs a
@@ -15,14 +18,14 @@ download of its chain table; the download lands in pinned memory and a
 CUDA event marks it complete.
 
 Not ported yet (raise NotImplementedError): the splice presets, the
-device extension backends ("device", "device_dl"), the multi-device
-front ends and the packed-block sink of the process runtime.
+multi-device front ends and the packed-block sink of the process
+runtime.
 """
 from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +39,7 @@ from ..ops.backtrack import backtrack_chains, backtrack_fits
 from ..ops.chain import ChainParams
 from ..ops.chain_kernel import chain_scores_kernel
 from ..ops.extend import ExtendParams
+from ..ops.extend_kernel import extend_dp_device, extend_traceback_device
 from ..ops.lookup import collect_anchors
 from ..ops.regions import (
     Region,
@@ -56,10 +60,9 @@ SPLICE_TODO = (
     "splice presets (MM_F_SPLICE) are not ported yet (ROADMAP Queue 1, "
     "splice path)"
 )
-EXT_TODO = (
-    "only the host C++ extension backend is ported; the device extension "
-    "backends (kernels K3/K4) are ROADMAP Queue 1 item 9"
-)
+#: bytes of K3's direction tensor one job group may hold on the device
+#: (see _run_jobs)
+DIRS_BUDGET = 64 << 20
 
 
 def _pow2_at_least(n: int, lo: int = 1) -> int:
@@ -67,6 +70,11 @@ def _pow2_at_least(n: int, lo: int = 1) -> int:
     while p < n:
         p <<= 1
     return p
+
+
+def _pow2_at_most(n: int) -> int:
+    """Largest power of two <= n (n >= 1)."""
+    return 1 << (n.bit_length() - 1)
 
 
 def front_end_bt(
@@ -131,7 +139,7 @@ class AlignmentEngine:
             a=opt.a, b=opt.b, q=opt.q, e=opt.e, q2=opt.q2, e2=opt.e2,
             sc_ambi=opt.sc_ambi,
         )
-        # band width class for flank extensions (host C++ extension)
+        # band width class for flank extensions
         self.flank_band = 128
         self.metrics = EngineMetrics()
         max_gap_ref = opt.max_gap_ref if opt.max_gap_ref >= 0 else opt.max_gap
@@ -404,17 +412,241 @@ class AlignmentEngine:
             )
 
     def _run_jobs(self, jobs: List[_ExtJob]) -> None:
-        """Extension jobs through the host C++ banded DP (the default
-        backend); the device backends are not ported."""
+        """Extension jobs through the configured backend: the host C++
+        banded DP, or kernel K3 on the device with the walk on the host
+        ("device_dl") or on the device too (kernel K4, "device")."""
         if not jobs:
             return
         from .. import native
 
+        native_ok = native.available()
         backend = self.cfg.extension_backend
-        if backend in ("auto", "host") and native.available():
+        if backend not in ("auto", "host", "device", "device_dl"):
+            raise ValueError(f"unknown extension_backend {backend!r}")
+        if backend == "auto":
+            backend = "host" if native_ok else "device_dl"
+        if backend == "host" and native_ok:
             self._run_jobs_host(jobs)
             return
-        raise NotImplementedError(EXT_TODO)
+        # small jobs (most flanks): full DP on host in C++ — cheaper
+        # than a device dispatch and removes whole shape classes
+        small: List[_ExtJob] = []
+        rest: List[_ExtJob] = []
+        for j in jobs:
+            if native_ok and len(j.q) <= 64 and len(j.t) <= 160:
+                small.append(j)
+            else:
+                rest.append(j)
+        if small:
+            self._run_small_jobs(small)
+        # bucket by (QMAX, TMAX, W) size class
+        groups: Dict[Tuple[int, int, int], List[_ExtJob]] = {}
+        for j in rest:
+            ql, tl = len(j.q), len(j.t)
+            if ql == 0 or tl == 0:
+                self._store_empty(j)
+                continue
+            QMAX = _pow2_at_least(ql, 64)
+            TMAX = _pow2_at_least(tl, 64)
+            # static band: lane d of diagonal s is i = band_lo(s)+d, so
+            # the W lanes cover j-i in [-W, W-2].  A global job's end
+            # cell sits at j-i = tlen-qlen, hence the drift term of
+            # _mid_band; flank t-windows are deliberately longer than q
+            # (ref overhang) and the band covers gaps up to ~W/2
+            if j.kind == "mid":
+                W = self._mid_band(abs(ql - tl))
+            else:
+                W = self.flank_band
+            W = min(W, _pow2_at_least(QMAX + TMAX, 128))
+            groups.setdefault((QMAX, TMAX, W), []).append(j)
+        for (QMAX, TMAX, W), grp in groups.items():
+            # J cap: K3 writes S*W direction bytes per job, and
+            # device_dl copies them all into pinned host memory, so a
+            # group holds at most DIRS_BUDGET bytes of them (the JAX
+            # package's 256 is a TPU scoped-VMEM figure).  At the main
+            # path's largest class (1024, 1024, 128) that is 256 jobs.
+            # The grouping does not change results.
+            S = QMAX + TMAX - 1
+            cap = _pow2_at_most(max(DIRS_BUDGET // (S * W), 1))
+            J = min(_pow2_at_least(len(grp), 8), cap)
+            for s0 in range(0, len(grp), J):
+                sub = grp[s0 : s0 + J]
+                q = np.full((J, QMAX), 4, np.uint8)
+                t = np.full((J, TMAX), 4, np.uint8)
+                ql = np.zeros(J, np.int32)
+                tl = np.zeros(J, np.int32)
+                for ji, job in enumerate(sub):
+                    q[ji, : len(job.q)] = job.q
+                    t[ji, : len(job.t)] = job.t
+                    ql[ji] = len(job.q)
+                    tl[ji] = len(job.t)
+                cells = float(len(sub)) * S * W
+                if backend == "device":
+                    self._run_group_device(sub, q, t, ql, tl, W, cells,
+                                           native_ok)
+                else:
+                    self._run_group_device_dl(sub, q, t, ql, tl, W, cells)
+
+    def _run_group_device(self, sub, q, t, ql, tl, W: int, cells: float,
+                          native_ok: bool) -> None:
+        """One job group fully on the device: K3 + K4, only the packed
+        CIGAR table downloaded."""
+        J = len(q)
+        mode = np.asarray(
+            [0 if j.kind == "mid" else 1 for j in sub] + [1] * (J - len(sub)),
+            np.int32,
+        )
+        ops = self.cfg.traceback_max_ops
+        with self.metrics.timer("extend"):
+            res = extend_traceback_device(
+                q, t, ql, tl, mode, W, self._ext_params, self.opt.end_bonus,
+                max_ops=ops, device=self.device,
+            )
+            self.metrics.add("dp_cells", cells)
+            self.metrics.add("ext_groups", 1)
+            self.metrics.add("ext_download_bytes", float(J) * (ops + 8) * 4)
+        retry = self._apply_fused_results(sub, res)
+        if retry:
+            # ops-table overflow (indel-dense outliers): re-run those
+            # through the host engine
+            if native_ok:
+                self._run_jobs_host(retry)
+            else:
+                for job in retry:
+                    self._store_empty(job)
+
+    def _run_group_device_dl(self, sub, q, t, ql, tl, W: int,
+                             cells: float) -> None:
+        """One job group: K3 on the device, the direction bytes
+        downloaded and walked on the host."""
+        QMAX, TMAX = q.shape[1], t.shape[1]
+        with self.metrics.timer("extend"):
+            res = extend_dp_device(q, t, ql, tl, W, self._ext_params,
+                                   device=self.device)
+            self.metrics.add("dp_cells", cells)
+            self.metrics.add("ext_groups", 1)
+            self.metrics.add("ext_download_bytes",
+                             float(res["dirs"].nbytes) + 24.0 * len(q))
+        dirs = res["dirs"]
+        best_sc, best_i, best_j = res["best_sc"], res["best_i"], res["best_j"]
+        g_sc, g_j, end_sc = res["g_sc"], res["g_j"], res["end_sc"]
+        # decide per-job traceback start cell + score
+        NEGISH = -(1 << 27)
+        starts = []  # (job_idx, start_i, start_j, score)
+        for ji, job in enumerate(sub):
+            if job.kind == "mid":
+                if int(end_sc[ji]) <= NEGISH:
+                    # end cell unreachable within the band
+                    self._store_empty(job)
+                    continue
+                starts.append((ji, int(ql[ji]) - 1, int(tl[ji]) - 1,
+                               int(end_sc[ji])))
+            else:
+                use_end = (
+                    int(g_sc[ji]) > NEGISH
+                    and int(g_sc[ji]) + self.opt.end_bonus >= int(best_sc[ji])
+                )
+                if use_end and int(g_sc[ji]) > 0:
+                    starts.append((ji, int(ql[ji]) - 1, int(g_j[ji]),
+                                   int(g_sc[ji])))
+                elif int(best_sc[ji]) > 0:
+                    starts.append((ji, int(best_i[ji]), int(best_j[ji]),
+                                   int(best_sc[ji])))
+                else:
+                    self._store_empty(job)
+        if not starts:
+            return
+        from .. import native
+
+        idxs = np.asarray([s[0] for s in starts], np.int32)
+        cigs = native.traceback_batch(
+            np.ascontiguousarray(dirs[:, idxs, :]), ql[idxs], tl[idxs],
+            np.asarray([s[1] for s in starts], np.int32),
+            np.asarray([s[2] for s in starts], np.int32),
+            max_ops=2 * (QMAX + TMAX),
+        )
+        if cigs is None:  # no native library: the python walk
+            cigs = [
+                cig.pack_ops(cig.traceback_one(
+                    dirs[:, ji, :], int(ql[ji]), int(tl[ji]), W, s_i, s_j))
+                for (ji, s_i, s_j, _) in starts
+            ]
+        for (ji, s_i, s_j, sc), c in zip(starts, cigs):
+            job = sub[ji]
+            if job.kind == "mid":
+                job.region._mid_parts[job.seg] = (c, sc)  # type: ignore[attr-defined]
+            else:
+                setattr(job.region, f"_{job.kind}", (c, sc, s_i + 1, s_j + 1))
+
+    def _apply_fused_results(
+        self, sub: List[_ExtJob], res: Dict[str, np.ndarray]
+    ) -> List[_ExtJob]:
+        """Store per-job results of the device-resident traceback;
+        returns jobs whose CIGAR overflowed the [J, OPS] table (the
+        caller re-runs them on the host engine)."""
+        ops_tab = res["ops"]
+        info = res["info"]
+        retry: List[_ExtJob] = []
+        for ji, job in enumerate(sub):
+            n_o, fi, fj, sc, started, ovf, si0, sj0 = (
+                int(v) for v in info[ji, :8])
+            if ovf:
+                retry.append(job)
+                continue
+            if not started:
+                self._store_empty(job)
+                continue
+            parts: List[Tuple[int, int]] = []
+            # leading border gaps (the host walk emits these after the
+            # in-band walk and reverses; reversed order is D then I)
+            if fj >= 0:
+                parts.append((fj + 1, 2))
+            if fi >= 0:
+                parts.append((fi + 1, 1))
+            raw = ops_tab[ji, :n_o][::-1]
+            parts.extend((int(v) >> 4, int(v) & 0xF) for v in raw)
+            c = cig.pack_ops(cig.merge_cigars([parts]))
+            if job.kind == "mid":
+                job.region._mid_parts[job.seg] = (c, sc)  # type: ignore[attr-defined]
+            else:
+                setattr(job.region, f"_{job.kind}", (c, sc, si0 + 1, sj0 + 1))
+        return retry
+
+    def _run_small_jobs(self, jobs: List[_ExtJob]) -> None:
+        """Small jobs of the device backends: full (unbanded) DP in host
+        C++ (native extend_small_batch), one call per mode."""
+        from .. import native
+
+        with self.metrics.timer("extend_small"):
+            for mode, kinds in ((0, ("mid",)), (1, ("left", "right"))):
+                sel = [j for j in jobs if j.kind in kinds]
+                if not sel:
+                    continue
+                QS = max(max(len(j.q) for j in sel), 1)
+                TS = max(max(len(j.t) for j in sel), 1)
+                q = np.full((len(sel), QS), 4, np.uint8)
+                t = np.full((len(sel), TS), 4, np.uint8)
+                ql = np.zeros(len(sel), np.int32)
+                tl = np.zeros(len(sel), np.int32)
+                for i, j in enumerate(sel):
+                    q[i, : len(j.q)] = j.q
+                    t[i, : len(j.t)] = j.t
+                    ql[i], tl[i] = len(j.q), len(j.t)
+                res = native.extend_small_batch(
+                    q, t, ql, tl, self._ext_params, self.opt.end_bonus, mode
+                )
+                self.metrics.add("dp_cells", float((ql * tl).sum()))
+                if res is None:  # native missing/overflow
+                    for j in sel:
+                        self._store_empty(j)
+                    continue
+                for j, (ops, sc, qc, tc) in zip(sel, res):
+                    if mode == 0:
+                        j.region._mid_parts[j.seg] = (ops, sc)  # type: ignore[attr-defined]
+                    elif len(ops) or sc > 0:
+                        setattr(j.region, f"_{j.kind}", (ops, sc, qc, tc))
+                    else:
+                        self._store_empty(j)
 
     def _seed_select_params(self):
         """Effective (occ_dist, max_max_occ) for seed thinning/rescue —

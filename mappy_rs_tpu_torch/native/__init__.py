@@ -1,9 +1,8 @@
 """ctypes loader for the C++ host runtime (with auto-build + fallback).
 
-The C++ is single-sourced: the library is compiled from the JAX
-package's ``mappy_rs_tpu/native/{mappy_native,front_end,post_chain}.cc``
-(read as files — this package never imports ``mappy_rs_tpu``) with
-that directory's Makefile flags, into this package's own gitignored
+The library is compiled from this package's own copy of the JAX
+package's host C++, ``native/src/{mappy_native,front_end,post_chain}.cc``,
+with the JAX package's Makefile flags, into this package's gitignored
 build directory on first use.  It supplies the host inner loops:
 post-chain record emission, banded extension, CIGAR stats and cs/MD,
 the contig sketcher and the CPU front end.  If it cannot be built,
@@ -21,9 +20,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC_DIR = os.path.join(os.path.dirname(_PKG), "mappy_rs_tpu", "native")
+_SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 _SOURCES = ("mappy_native.cc", "front_end.cc", "post_chain.cc")
-# same flags as mappy_rs_tpu/native/Makefile
+# the JAX package's native Makefile flags
 _CXXFLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]
 BUILD_DIR = os.path.join(_PKG, "_build")
 _SO = os.path.join(BUILD_DIR, "libmappy_native.so")

@@ -7,7 +7,8 @@ import time: this module imports on machines without nvcc or a card.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; the wrappers (ops/chain_kernel.py,
-ops/backtrack.py) raise when that is not 0.
+ops/backtrack.py, ops/extend_kernel.py, ops/traceback.py) raise when
+that is not 0.
 """
 from __future__ import annotations
 
@@ -21,13 +22,16 @@ from typing import Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("chain.cu", "backtrack.cu")
+SOURCES = ("chain.cu", "backtrack.cu", "extend.cu", "traceback.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 _SO = os.path.join(BUILD_DIR, "libmappy_kernels.so")
-# -fmad=false: K1's float32 gap penalty must not be contracted into FMAs
+# -fmad=false: K1's float32 gap penalty must not be contracted into FMAs;
+# -Xptxas -v: registers, shared memory and spills of each kernel, kept in
+# build_log
+GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    *GENCODE, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 ]
 #: dynamic shared memory a block may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
@@ -36,6 +40,8 @@ _lib: Optional[ctypes.CDLL] = None
 _mu = threading.Lock()
 #: seconds the last build took (0.0 when the library was already built)
 build_seconds = 0.0
+#: nvcc's messages of the last build (ptxas resource usage per kernel)
+build_log = ""
 
 
 def _nvcc() -> str:
@@ -54,23 +60,48 @@ def _stale() -> bool:
 
 def build() -> str:
     """Compile the kernels (if the library is missing or stale); returns
-    the library path.  Raises with nvcc's output on failure."""
-    global build_seconds
+    the library path.  One nvcc per source, all started together, then
+    one link.  Raises with nvcc's output on failure."""
+    global build_seconds, build_log
     if not _stale():
         return _SO
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
+    jobs = []
+    try:
+        for src in SOURCES:
+            obj = os.path.join(BUILD_DIR, f"{src}.{tag}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        logs = []
+        for cmd, _obj, proc in jobs:
+            out, err = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{out}\n{err}")
+            logs.append(out + err)
+        tmp = f"{_SO}.{tag}.tmp"
+        cmd = [nvcc, *GENCODE, "-shared", "-o", tmp, *(o for _c, o, _p in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                f"{res.stdout}\n{res.stderr}")
+    finally:
+        for _cmd, obj, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, _SO)
     build_seconds = time.perf_counter() - t0
+    build_log = "".join(logs)
     return _SO
 
 
@@ -87,6 +118,10 @@ def load() -> ctypes.CDLL:
             )
             lib.backtrack_chains.restype = ci
             lib.backtrack_chains.argtypes = [vp] * 8 + [ci] * 6 + [vp, vp]
+            lib.extend_dp.restype = ci
+            lib.extend_dp.argtypes = [vp] * 4 + [ci] * 11 + [vp] * 4
+            lib.traceback_walk.restype = ci
+            lib.traceback_walk.argtypes = [vp] * 5 + [ci] * 5 + [vp] * 3
             _lib = lib
         return _lib
 

@@ -7,7 +7,9 @@ so on a machine with a card and no JAX it runs on its own:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 (the suite's conftest.py configures JAX).  The CPU parity of each
-kernel's plain version with the JAX package is tests/test_torch_front_end.py.
+kernel's plain version with the JAX package is in
+tests/test_torch_front_end.py (K1, K2) and tests/test_torch_extend.py
+(K3, K4).
 """
 import numpy as np
 import pytest
@@ -17,13 +19,18 @@ import mappy_rs_tpu_torch
 from mappy_rs_tpu_torch.models.pipeline import front_end_bt
 from mappy_rs_tpu_torch.ops import backtrack as bt
 from mappy_rs_tpu_torch.ops import chain_kernel as ck
+from mappy_rs_tpu_torch.ops import extend_kernel as ek
+from mappy_rs_tpu_torch.ops import traceback as tb
 from mappy_rs_tpu_torch.ops.chain import ChainParams, chain_scores
+from mappy_rs_tpu_torch.ops.extend import BEST_COLS, ExtendParams, extend_dp
 from mappy_rs_tpu_torch.utils.seqcodes import encode
 from mappy_rs_tpu_torch.utils.simulate import random_genome, simulate, sweep_anchors
 
 # map-ont chaining parameters at k=15
 PARAMS = ChainParams(max_dist_x=5000, max_dist_y=5000, bw=500, q_span=15,
                      chn_pen_gap=0.8 * 0.01 * 15, chn_pen_skip=0.0)
+# map-ont extension scoring
+EXT = ExtendParams(a=2, b=4, q=4, e=2, q2=24, e2=1, sc_ambi=1)
 
 
 @pytest.fixture
@@ -80,3 +87,82 @@ def test_aligner_on_card_matches_cpu(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert (chains[: len(reads), 0, 0] >= 0).all()
+
+
+def _ext_jobs(rng, J, QMAX, TMAX):
+    """Query = the target window with 8% substitutions, insertions and
+    deletions; a few N bases; the last job empty (padding)."""
+    q = np.full((J, QMAX), 4, np.uint8)
+    t = np.full((J, TMAX), 4, np.uint8)
+    ql = np.zeros(J, np.int32)
+    tl = np.zeros(J, np.int32)
+    for ji in range(J - 1):
+        tseq = rng.integers(0, 4, rng.integers(QMAX // 2, TMAX + 1))
+        keep = rng.random(len(tseq)) > 0.03
+        qseq = np.where(rng.random(len(tseq)) < 0.03,
+                        rng.integers(0, 5, len(tseq)), tseq)[keep]
+        ins = rng.random(len(qseq)) < 0.02
+        qseq = np.insert(qseq, np.nonzero(ins)[0], rng.integers(0, 4, ins.sum()))
+        qseq = qseq[:QMAX]
+        q[ji, : len(qseq)] = qseq
+        t[ji, : len(tseq)] = tseq
+        ql[ji], tl[ji] = len(qseq), len(tseq)
+    return q, t, ql, tl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [32, 128])
+def test_extension_kernels_match_plain(cuda, W):
+    rng = np.random.default_rng(W)
+    q, t, ql, tl = (torch.from_numpy(x).to(cuda)
+                    for x in _ext_jobs(rng, 64, 256, 320))
+    n3, n4 = ek.launches, tb.launches
+    got = ek.extend_dp_kernel(q, t, ql, tl, W, EXT)
+    want = extend_dp(q, t, ql, tl, W, EXT)
+    for k in ("dirs",) + BEST_COLS:
+        assert torch.equal(got[k], want[k]), k
+    assert (want["end_sc"] > 0).sum() > 0
+    mode = (torch.arange(64, device=cuda) % 2).to(torch.int32)
+    best = torch.stack([want[c] for c in BEST_COLS], 1)
+    for ops_w in (128, 4):  # 4: some walks overflow the table
+        o, i = tb.traceback_device(got["dirs"], got["best"], ql, tl, mode, W,
+                                   ops_w, 10)
+        o2, i2 = tb.traceback_plain(want["dirs"], best, ql, tl, mode, W,
+                                    ops_w, 10)
+        assert torch.equal(o, o2) and torch.equal(i, i2)
+    assert i[:, 5].sum() > 0 and i[:, 4].sum() > 16
+    assert (ek.launches, tb.launches) == (n3 + 1, n4 + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["device", "device_dl"])
+def test_device_extension_backend_on_card_matches_cpu(cuda, backend):
+    rng = np.random.default_rng(11)
+    genome = random_genome(rng, 1_000_000)
+    reads, starts = simulate(rng, genome, 16, 1000, 0.05)
+    gpu = mappy_rs_tpu_torch.Aligner(seq=genome, device="cuda")
+    cpu = mappy_rs_tpu_torch.Aligner(seq=genome, device="cpu")
+    want = cpu._engine.map_batch(reads, cs=True, md=True)  # host backend
+    n3, n4 = ek.launches, tb.launches
+    gpu._engine.cfg.extension_backend = backend
+    got = gpu._engine.map_batch(reads, cs=True, md=True)
+    assert [gpu._to_mappings(r) for r in got] == [cpu._to_mappings(r) for r in want]
+    assert ek.launches > n3
+    assert (tb.launches > n4) == (backend == "device")
+    for r, s in zip(got, starts):
+        assert abs(r[0].rs - s) < 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [2048, 6144])
+def test_extension_kernel_wide_bands(cuda, W):
+    """Bands of several lanes per thread: W=2048 keeps the DP rows in
+    (opt-in, > 48 KB) shared memory, W=6144 in the global scratch."""
+    rng = np.random.default_rng(W)
+    q, t, ql, tl = (torch.from_numpy(x).to(cuda)
+                    for x in _ext_jobs(rng, 4, 1024, 1024))
+    got = ek.extend_dp_kernel(q, t, ql, tl, W, EXT)
+    want = extend_dp(q, t, ql, tl, W, EXT)
+    for k in ("dirs",) + BEST_COLS:
+        assert torch.equal(got[k], want[k]), k
+    assert (want["end_sc"] > 0).sum() == 3
