@@ -7,11 +7,19 @@ non-zero):
   1. card, power limit, torch/CUDA versions; build the CUDA kernels
      (nvcc, sm_90a) and the host C++ library from the checkout.
   2. K1 (chain DP): kernel == plain torch version, exactly, at the main
-     path's shape (B=256, A=256, window 128), at window 512 and at the
+     path's shape (B=256, A=256, window 128), at windows 256, 512 and
+     1024, with a nonzero skip scale (the float penalty path), at the
      anchor-overflow retry's A=4096, on anchors from the real front end
-     and on synthetic anchors whose gaps sweep the whole gate range.
+     and on synthetic anchors whose gaps sweep the whole gate range, on
+     edge cases (equal candidates, best == span_i, an empty read, a
+     non-prefix valid mask), and at the long-read shapes B=8, A in
+     {32,768, 131,072, 524,288}: a tile of 256 sweep anchors repeated
+     (utils/simulate.py tile_anchors), whose expected result is the
+     tile's plain result, repeated.
   3. K2 (chain backtrack): kernel == plain version, exactly, at
-     B=256, A=256, K=8, cuts=2 and at A=4096.
+     B=256, A=256, K=8, cuts=2, at A=4096, on the edge cases and at the
+     three long-read shapes (K=8, cuts=8).  K1 and K2 are timed (plain,
+     kernel, kernel, plain) at (256, 256) and (8, 32,768).
   4. the slice at users' size: Aligner(seq=<32 Mbp random genome>) on
      the card, 8,192 simulated 1 kb reads at 5% error through
      enable_threading(4) + map_batch; at least 99% must map within
@@ -34,11 +42,20 @@ non-zero):
      >= 99% within 100 bp and give the host backend's Mappings field
      for field (cs and MD too, through the engine's batch call); K3 and
      K4 must launch under "device", K4 never under "device_dl".
-Prints per-kernel times (CUDA events) beside the plain versions' and
-each kernel's bound (the larger of its bytes over 3.35 TB/s and its
-int32 operations over 16.7 Top/s), the kernels' JSON line, the card
-line, and last the result line.  Exits non-zero without a result when
-no card is visible.
+  8. long reads: 64 simulated 100 kb reads at 5% error against phase
+     4's genome through enable_threading(4) + map_batch at the default
+     config (131,072 bucket, B=8, A=32,768); >= 99% placed (the
+     leftmost primary part within 100 bp of the origin: z-drop splits
+     some alignments into collinear parts), K1 and K2 launched, and 8
+     of the reads map identically on the card and through the CPU
+     plain versions.
+Prints per-kernel times (CUDA events around eager calls, the JSON
+line's `ms`; K1 and K2 also as CUDA-graph replays, `graph_ms`, which
+leave out the host's launch cost) beside the plain versions' and each
+kernel's bound (the larger of the bytes this run's data needs over
+3.35 TB/s and its int32 operations over 16.7 Top/s), the kernels' JSON
+line, the card line, and last the result line.  Exits non-zero without
+a result when no card is visible.
 """
 from __future__ import annotations
 
@@ -55,6 +72,9 @@ N_READS = 8192
 READ_LEN = 1000
 ERR = 0.05
 SEED = 20261016
+LONG_READS = 64
+LONG_LEN = 100_000
+LONG_SHAPES = (32768, 131072, 524288)  # A at B=8: the 131,072 bucket's budgets
 
 
 # H100 SXM peaks for the bounds (NVIDIA data sheet / Hopper white
@@ -98,11 +118,12 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, n: int) -> float:
+def cuda_ms(fn, n: int, warm: bool = True) -> float:
     """Mean milliseconds of fn() over n launches (CUDA events)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -114,13 +135,110 @@ def cuda_ms(fn, n: int) -> float:
     return t0.elapsed_time(t1) / n
 
 
-def timed_pair(kernel, plain, n_kernel: int, n_plain: int):
+def graph_ms(fn, n: int) -> float:
+    """Mean milliseconds of fn() on the device: n calls captured in one
+    CUDA graph, replayed between CUDA events, so the host's launch cost
+    (the wrapper's checks, ctypes) is not in the time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
+def timed_pair(kernel, plain, n_kernel: int, n_plain: int,
+               warm_plain: bool = True):
     """(kernel_ms, plain_ms), interleaved plain, kernel, kernel, plain."""
-    p1 = cuda_ms(plain, n_plain)
+    p1 = cuda_ms(plain, n_plain, warm_plain)
     k1 = cuda_ms(kernel, n_kernel)
     k2 = cuda_ms(kernel, n_kernel)
-    p2 = cuda_ms(plain, n_plain)
+    p2 = cuda_ms(plain, n_plain, warm_plain)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def k1_bound(anchors, H: int) -> dict:
+    """K1's bound from these anchors: the valid mask and the five fields
+    of each valid anchor read once, f/p written once; each valid anchor
+    scored against the valid anchors of its window of H."""
+    import torch
+
+    valid = anchors["valid"]
+    B, A = valid.shape
+    cs = torch.nn.functional.pad(valid.long().cumsum(1), (1, 0))
+    idx = torch.arange(A, device=valid.device)
+    in_window = cs[:, idx] - cs[:, (idx - H).clamp(min=0)]
+    pairs = float((valid * in_window).sum())
+    n_valid = float(valid.sum())
+    return bound(n_valid * 5 * 4 + B * A * (1 + 8), pairs * OPS_PER_PAIR_K1)
+
+
+def k2_walk(anchors, f, p, K: int, min_sc: int) -> tuple:
+    """(walk steps, passes that found an end) of K2 on these inputs,
+    summed over the reads: each pass takes the best unused candidate
+    (valid, f >= min_sc) and walks p until a used anchor or a start,
+    kept chains and rejected ones alike (ops/backtrack.py semantics)."""
+    fv = f.cpu().numpy().astype(np.int64)
+    pv = p.cpu().numpy()
+    ok = anchors["valid"].cpu().numpy() & (fv >= min_sc)
+    B, A = fv.shape
+    steps = ends = 0
+    for b in range(B):
+        used = np.zeros(A, bool)
+        fc = np.where(ok[b], fv[b], -(1 << 40))
+        for _ in range(K):
+            cand = np.where(used, -(1 << 40), fc)
+            best = cand.max()
+            if best <= -(1 << 40):
+                break
+            cur = int(np.flatnonzero(cand == best)[-1])
+            ends += 1
+            for _ in range(A):
+                used[cur] = True
+                steps += 1
+                cur = int(pv[b, cur])
+                if cur < 0 or used[cur]:
+                    break
+    return steps, ends
+
+
+def k2_bound(anchors, f, p, K: int, cuts: int, min_sc: int) -> dict:
+    """K2's bound from this run's walks: f and valid read once for the
+    candidate scan, p/qpos/rpos once per walk step, the end's rev, rid,
+    rpos and qpos, f at the join and span at the start once per pass,
+    the chain table written once; K passes over the valid candidates."""
+    valid = anchors["valid"]
+    B, A = valid.shape
+    steps, ends = k2_walk(anchors, f, p, K, min_sc)
+    n_valid = float(valid.sum())
+    return {**bound(B * A * (4 + 1) + 12 * steps + 24 * ends
+                    + B * K * (9 + 2 * cuts) * 4,
+                    K * n_valid * OPS_PER_CAND_K2),
+            "walk_steps_all": steps, "walk_ends": ends}
+
+
+def serial_steps(anchors) -> int:
+    """K1's serial steps: the largest (last valid index + 1) of a row."""
+    import torch
+
+    valid = anchors["valid"]
+    A = valid.shape[1]
+    idx = torch.arange(1, A + 1, device=valid.device)
+    return int((valid * idx).amax())
 
 
 # ---------------------------------------------------------------- phase 1
@@ -191,15 +309,17 @@ def phase_kernels(al, reads, rng) -> dict:
     from mappy_rs_tpu_torch.ops import backtrack as bt
     from mappy_rs_tpu_torch.ops import chain_kernel as ck
     from mappy_rs_tpu_torch.ops.chain import chain_scores
-    from mappy_rs_tpu_torch.utils.simulate import sweep_anchors
+    from mappy_rs_tpu_torch.utils.simulate import (edge_anchors, sweep_anchors,
+                                                   tile_anchors,
+                                                   tile_chain_result)
 
     eng = al._engine
     params = eng._chain_params
     res = {"chain_dp": {"max_abs_err": 0}, "backtrack_chains": {"max_abs_err": 0}}
 
-    def k1_check(anchors, window, label):
-        f, p = ck.chain_scores_kernel(anchors, params, window)
-        fr, pr = chain_scores(anchors, params, ck.window_of(window))
+    def k1_check(anchors, window, label, prm=params):
+        f, p = ck.chain_scores_kernel(anchors, prm, window)
+        fr, pr = chain_scores(anchors, prm, ck.window_of(window))
         torch.cuda.synchronize()
         err = max(max_err(f, fr), max_err(p, pr))
         B, A = f.shape
@@ -234,47 +354,90 @@ def phase_kernels(al, reads, rng) -> dict:
     f_syn, p_syn = k1_check(syn, 128, "gate sweep")
     syn_w = sweep_anchors(rng, 256, 1024, bw, device="cuda")
     k1_check(syn_w, 512, "gate sweep, R=4")
+    k1_check(syn_w, 256, "gate sweep, R=2")
+    k1_check(sweep_anchors(rng, 64, 2048, bw, device="cuda"), 1024,
+             "gate sweep, R=8")
+    # a nonzero skip scale takes K1's float penalty path, not its table
+    k1_check(syn, 128, "gate sweep, skip scale 0.37",
+             params._replace(chn_pen_skip=0.37 * 0.01 * al._engine.index.k))
     syn_big = sweep_anchors(rng, 256, 4096, bw, device="cuda")
     f_big, p_big = k1_check(syn_big, 128, "gate sweep, A=4096")
     real_big = front_end_anchors(al, reads, 4096)
     k1_check(real_big, 128, "front-end anchors, A=4096")
+    edge = edge_anchors(rng, 512, device="cuda")
+    for window in (128, 512):
+        f_e, p_e = k1_check(edge, window, "edge cases")
+        k2_check(edge, f_e, p_e, "edge cases")
 
     k2_check(real, f_real, p_real, "front-end anchors")
     k2_check(syn, f_syn, p_syn, "gate sweep")
     k2_check(syn_big, f_big, p_big, "gate sweep, A=4096")
 
-    # times at the main path's shape (B=256, A=256)
-    k, pl = timed_pair(
-        lambda: ck.chain_scores_kernel(real, params, 128),
-        lambda: chain_scores(real, params, 128), 200, 3)
-    res["chain_dp"].update(ms=k, plain_ms=pl)
-    log(f"K1 time at B=256 A=256: kernel {k:.4f} ms, plain {pl:.3f} ms")
-    mc, ms = eng.opt.min_cnt, eng.opt.min_chain_score
-    k, pl = timed_pair(
-        lambda: bt.backtrack_chains(real, f_real, p_real, 8, 2, mc, ms),
-        lambda: bt.backtrack_chains_plain(real, f_real, p_real, 8, 2, mc, ms),
-        200, 3)
-    res["backtrack_chains"].update(ms=k, plain_ms=pl)
-    log(f"K2 time at B=256 A=256 K=8: kernel {k:.4f} ms, plain {pl:.3f} ms")
+    # the long-read shapes: B=8, one tile of 256 anchors repeated
+    tile = sweep_anchors(rng, 8, 256, bw, device="cuda")
+    f_t, p_t = chain_scores(tile, params, 128)
+    long_in = None
+    for A in LONG_SHAPES:
+        reps = A // 256
+        big = tile_anchors(tile, reps)
+        f, p = ck.chain_scores_kernel(big, params, 128)
+        fr, pr = tile_chain_result(f_t, p_t, reps)
+        torch.cuda.synchronize()
+        err = max(max_err(f, fr), max_err(p, pr))
+        log(f"K1 tiled: B=8 A={A} links={int((p >= 0).sum())} "
+            f"max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"K1 kernel != tiled plain result (A={A})")
+        k2_check(big, f, p, f"tiled, A={A}", K=8, cuts=8)
+        if long_in is None:
+            long_in = (big, f, p)
+        del big, f, p, fr, pr
 
-    # bounds at that shape, from this batch's anchors: every anchor's
-    # fields read once, f/p (K1) and the chain table (K2) written once;
-    # K1 scores each valid anchor against min(index, H) predecessors
-    B, A = f_real.shape
-    valid = real["valid"]
-    idx = torch.arange(A, device=valid.device)
-    pairs = float((valid * idx.clamp(max=ck.window_of(128))).sum())
-    n_valid = float(valid.sum())
-    res["chain_dp"].update(bound(B * A * (5 * 4 + 1) + B * A * 8,
-                                 pairs * OPS_PER_PAIR_K1))
-    FLD = 9 + 2 * 2
-    res["backtrack_chains"].update(bound(
-        B * A * (7 * 4 + 1) + B * 8 * FLD * 4,
-        8 * n_valid * OPS_PER_CAND_K2))
-    for name in ("chain_dp", "backtrack_chains"):
-        r = res[name]
-        log(f"{name} bound: {r['bound_ms']:.5f} ms ({r['bound_by']}; "
-            f"{r['bytes']:.0f} B, {r['ops']:.0f} int32 ops)")
+    # times at the main path's shape (B=256, A=256) and at (8, 32,768)
+    mc, ms = eng.opt.min_cnt, eng.opt.min_chain_score
+    for label, an, f, p, n_k, n_p, warm, cuts in (
+        ("main", real, f_real, p_real, 200, 3, True, 2),
+        ("long", *long_in, 20, 1, False, 8),
+    ):
+        B, A = an["valid"].shape
+        k, pl = timed_pair(
+            lambda: ck.chain_scores_kernel(an, params, 128),
+            lambda: chain_scores(an, params, 128), n_k, n_p, warm)
+        kg = graph_ms(lambda: ck.chain_scores_kernel(an, params, 128), n_k)
+        steps = serial_steps(an)
+        # ms: per eager call, as the main path launches it; graph_ms: the
+        # device time alone, which the per-step figure divides
+        k1 = {"ms": k, "graph_ms": kg, "plain_ms": pl,
+              "us_per_step": 1e3 * kg / steps, "steps": steps,
+              **k1_bound(an, ck.window_of(128))}
+        log(f"K1 time at B={B} A={A}: kernel {k:.4f} ms per eager call, "
+            f"{kg:.4f} ms on the device (graph replay), plain {pl:.3f} ms; "
+            f"{steps} serial steps, {k1['us_per_step']:.4f} us per step")
+        k, pl = timed_pair(
+            lambda: bt.backtrack_chains(an, f, p, 8, cuts, mc, ms),
+            lambda: bt.backtrack_chains_plain(an, f, p, 8, cuts, mc, ms),
+            n_k, n_p, warm)
+        kg = graph_ms(lambda: bt.backtrack_chains(an, f, p, 8, cuts, mc, ms),
+                      n_k)
+        o = bt.backtrack_chains(an, f, p, 8, cuts, mc, ms)
+        cnt = torch.where(o[:, :, 1] > 0, o[:, :, 1], 0).sum(dim=1)
+        walk = int(cnt.max())
+        k2 = {"ms": k, "graph_ms": kg, "plain_ms": pl, "walk_steps": walk,
+              "walk_steps_total": int(cnt.sum()),
+              **k2_bound(an, f, p, 8, cuts, ms)}
+        log(f"K2 time at B={B} A={A} K=8: kernel {k:.4f} ms per eager "
+            f"call, {kg:.4f} ms on the device (graph replay), plain "
+            f"{pl:.3f} ms; kept chains' walk steps: {walk} in the longest "
+            f"read, {k2['walk_steps_total']} in all; every walk: "
+            f"{k2['walk_steps_all']} steps from {k2['walk_ends']} ends")
+        for name, r in (("chain_dp", k1), ("backtrack_chains", k2)):
+            log(f"{name} bound at B={B} A={A}: {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']}; {r['bytes']:.0f} B, {r['ops']:.0f} "
+                f"int32 ops)")
+            if label == "main":
+                res[name].update(r)
+            else:
+                res[name]["long"] = r
     return res
 
 
@@ -641,6 +804,99 @@ def phase_ext_slice(al, reads, starts) -> dict:
     return runs
 
 
+# --------------------------------------------------------------- phase 8
+def phase_long_reads(al, genome) -> dict:
+    import dataclasses
+
+    import torch
+
+    from mappy_rs_tpu_torch.models.pipeline import (AlignmentEngine,
+                                                    front_end_bt)
+    from mappy_rs_tpu_torch.ops import backtrack as bt
+    from mappy_rs_tpu_torch.ops import chain_kernel as ck
+    from mappy_rs_tpu_torch.utils.seqcodes import encode
+    from mappy_rs_tpu_torch.utils.simulate import simulate
+
+    eng = al._engine
+    rng = np.random.default_rng(SEED + 8)
+    t0 = time.perf_counter()
+    reads, starts = simulate(rng, genome, LONG_READS, LONG_LEN, ERR)
+    L = eng._bucket_len(max(len(r) for r in reads))
+    B, M, A = eng.fe_shapes(L)
+    log(f"long reads: {len(reads)} x {LONG_LEN} bp at {ERR:.0%} error "
+        f"({time.perf_counter() - t0:.1f} s); bucket L={L}, B={B}, A={A}")
+
+    # the front end alone on one [B, L] batch (CUDA events)
+    batch = np.full((B, L), 4, np.uint8)
+    lens = np.zeros(B, np.int32)
+    for i, r in enumerate(reads[:B]):
+        c = encode(r)
+        batch[i, : len(c)] = c
+        lens[i] = len(c)
+    codes_t = torch.from_numpy(batch).cuda()
+    lens_t = torch.from_numpy(lens).cuda()
+    kw = eng._fe_kwargs(M, A, min(8, L // eng.SEG_LEN))
+    fe_ms = cuda_ms(lambda: front_end_bt(codes_t, lens_t, eng.dev, **kw), 5)
+    log(f"long-read front end: {fe_ms:.3f} ms per [{B}, {L}] batch "
+        "(CUDA events)")
+
+    payload = [{"i": i, "seq": s} for i, s in enumerate(reads)]
+    al.enable_threading(4)
+    list(al.map_batch(payload[:B]))  # warm the bucket's shapes
+    al.reset_metrics()
+    ck.launches = 0
+    bt.launches = 0
+    t0 = time.perf_counter()
+    placed = split = 0
+    for mappings, data in al.map_batch(payload):
+        # z-drop may split a 100 kb alignment into collinear primary
+        # parts; the read is placed when its leftmost part starts at
+        # the origin
+        prim = [m for m in mappings if m.is_primary]
+        split += len(prim) > 1
+        if prim and abs(min(m.target_start for m in prim)
+                        - starts[data["i"]]) < 100:
+            placed += 1
+    wall = time.perf_counter() - t0
+    launches = {"chain_dp": ck.launches, "backtrack_chains": bt.launches}
+    al.enable_threading(0)
+    m = al.metrics
+    batches = m.get("fe_batches", 0)
+    fe_thread_ms = 1e3 * m.get("time_front_end_s", 0.0) / max(batches, 1)
+    log(f"long reads: {len(reads)} in {wall:.3f} s = {len(reads) / wall:.2f} "
+        f"reads/s (4 threads); within 100 bp {placed} "
+        f"({100.0 * placed / len(reads):.2f}%), {split} split into several "
+        f"primary parts; launches {launches}; "
+        f"{batches:.0f} front-end batches, {fe_thread_ms:.1f} thread-ms "
+        "of front end per batch (submit + collect)")
+    log("long-read engine metrics: " + json.dumps(
+        {k: m[k] for k in sorted(m) if k.startswith(("time_", "calls_", "fe_",
+                                                     "anchor_"))}))
+    if placed < 0.99 * len(reads):
+        raise AssertionError(f"long reads: only {placed}/{len(reads)} placed")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"long reads: kernel {name} never launched")
+
+    # 8 reads in one batch: the card == the CPU plain versions
+    cpu = AlignmentEngine(eng.index, eng.opt,
+                          dataclasses.replace(eng.cfg, device="cpu"))
+    t0 = time.perf_counter()
+    sel = reads[:8]
+    got = [al._to_mappings(r) for r in eng.map_batch(sel, cs=True)]
+    want = [al._to_mappings(r) for r in cpu.map_batch(sel, cs=True)]
+    n_diff = sum(1 for a, b in zip(got, want) if a != b)
+    log(f"long reads: 8 reads on the card vs the CPU plain versions: "
+        f"{n_diff} differ ({time.perf_counter() - t0:.1f} s)")
+    if n_diff:
+        raise AssertionError(f"long reads: {n_diff} of 8 differ card vs CPU")
+    return {"reads_per_s": len(reads) / wall, "wall_s": wall,
+            "placed": placed, "split": split, "n_reads": len(reads),
+            "launches": launches,
+            "fe_ms": fe_ms, "fe_thread_ms_per_batch": fe_thread_ms,
+            "shape": [B, L, A]}
+
+
 def main() -> int:
     import torch
 
@@ -668,6 +924,7 @@ def main() -> int:
     sl = phase_slice(al, reads, starts, genome)
     kern.update(phase_ext_kernels(al, reads, rng))
     ext = phase_ext_slice(al, reads, starts)
+    long_reads = phase_long_reads(al, genome)
     launches = dict(sl["launches"], **ext["device"]["launches"])
 
     kernels = []
@@ -689,11 +946,15 @@ def main() -> int:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             # no single PyTorch call computes any of these four functions
             "library_ms": None,
+            # K1, K2: the device time alone (CUDA-graph replay)
+            **({"graph_ms": k["graph_ms"]} if "graph_ms" in k else {}),
         })
     record = {"card": info["card"], "kernels": kernels,
               "reads_per_s": sl["reads_per_s"], "front_end_ms": sl["fe_ms"],
               "placed": sl["placed"], "n_reads": N_READS,
-              "extension_backends": ext,
+              "extension_backends": ext, "long_reads": long_reads,
+              "long_kernels": {n: kern[n].get("long") for n in
+                               ("chain_dp", "backtrack_chains")},
               "seconds": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:

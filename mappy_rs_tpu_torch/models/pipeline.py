@@ -37,7 +37,7 @@ from ..index.index import DeviceIndex, MinimizerIndex, resolve_device
 from ..ops import cigar as cig
 from ..ops.backtrack import backtrack_chains, backtrack_fits
 from ..ops.chain import ChainParams
-from ..ops.chain_kernel import chain_scores_kernel
+from ..ops.chain_kernel import chain_fits, chain_scores_kernel
 from ..ops.extend import ExtendParams
 from ..ops.extend_kernel import extend_dp_device, extend_traceback_device
 from ..ops.lookup import collect_anchors
@@ -250,12 +250,15 @@ class AlignmentEngine:
                 return b
         return _pow2_at_least(n, self.cfg.length_buckets[-1])
 
-    def _bt_enabled(self, A: int) -> bool:
-        """Device backtrack for every shape kernel K2 takes.  The JAX
-        package's B*A > 256*1024 gate is a TPU VMEM limit; on the card
-        the bound is K2's shared memory (A bytes of `used` flags), and
-        the CPU's plain version takes any shape."""
-        return self.device.type == "cpu" or backtrack_fits(A)
+    def _kernels_fit(self, A: int) -> bool:
+        """Whether kernels K1 and K2 take A anchors per read at the
+        configured window (the CPU's plain versions take any shape).
+        The JAX package's B*A > 256*1024 gate is a TPU VMEM limit; on
+        the card K1 keeps only its window and K2 one bit per anchor, so
+        every A that fe_shapes makes (up to 524,288) fits."""
+        return self.device.type == "cpu" or (
+            chain_fits(A, self.cfg.pallas_chain_window)
+            and backtrack_fits(A))
 
     def fe_shapes(self, L: int, a_boost: int = 1, b_real: int = 0):
         """Static device-batch shapes for the L bucket: (B, M, A).
@@ -348,10 +351,12 @@ class AlignmentEngine:
     ) -> None:
         k = self.index.k
         B, M, A = self.fe_shapes(L, a_boost=a_boost, b_real=len(idxs))
-        if not self._bt_enabled(A):
+        if not self._kernels_fit(A):
             raise ValueError(
-                f"anchor budget A={A} exceeds what the device backtrack "
-                "kernel takes; the host-backtrack front end is not ported"
+                f"anchor budget A={A} at window "
+                f"{self.cfg.pallas_chain_window} is outside what the "
+                "chain kernels take (ops/chain_kernel.py chain_fits, "
+                "ops/backtrack.py backtrack_fits)"
             )
         overflow_reads: List[int] = []
         bt_cuts = min(8, L // self.SEG_LEN)

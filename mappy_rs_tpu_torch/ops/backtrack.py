@@ -107,10 +107,21 @@ def backtrack_chains_plain(anchors: dict, f: torch.Tensor, p: torch.Tensor,
     return out.to(torch.int32)
 
 
+#: anchors of one walk chunk (csrc/backtrack.cu CHUNK)
+CHUNK = 32
+
+
+def smem_bytes(A: int) -> int:
+    """Shared memory the kernel needs: the `used` bitmask (one bit per
+    anchor) and the walk's chunk buffer.  p is staged too when it fits
+    (csrc/backtrack.cu)."""
+    return ((A + 31) // 32 + CHUNK) * 4
+
+
 def backtrack_fits(A: int) -> bool:
-    """Whether the kernel takes A anchors per read: its `used` flags
-    (A bytes) must fit a block's shared memory."""
-    return A <= cuda_build.SMEM_LIMIT
+    """Whether the kernel takes A anchors per read: the bitmask and the
+    chunk buffer fit a block's shared memory (A <= 1,858,560)."""
+    return 0 <= A and smem_bytes(A) <= cuda_build.SMEM_LIMIT
 
 
 def _check(anchors: dict, f: torch.Tensor, p: torch.Tensor, seg_cuts: int):
@@ -145,8 +156,8 @@ def backtrack_chains(anchors: dict, f: torch.Tensor, p: torch.Tensor,
     B, A = f.shape
     if not backtrack_fits(A):
         raise ValueError(
-            f"backtrack_chains: A={A} anchors exceed the "
-            f"{cuda_build.SMEM_LIMIT} bytes of shared memory a block may use"
+            f"backtrack_chains: A={A} anchors need {smem_bytes(A)} bytes of "
+            f"shared memory, over the {cuda_build.SMEM_LIMIT} a block may use"
         )
     out = torch.empty((B, K, N_FIXED + 2 * seg_cuts), dtype=torch.int32,
                       device=dev)
@@ -158,7 +169,8 @@ def backtrack_chains(anchors: dict, f: torch.Tensor, p: torch.Tensor,
             f.data_ptr(), p.data_ptr(), anchors["valid"].data_ptr(),
             *(anchors[n].data_ptr()
               for n in ("rev", "rid", "rpos", "qpos", "span")),
-            B, A, K, seg_cuts, int(min_cnt), int(min_sc), out.data_ptr(),
+            B, A, K, seg_cuts, int(min_cnt), int(min_sc),
+            cuda_build.SMEM_LIMIT, out.data_ptr(),
             cuda_build.stream_handle(dev),
         )
     cuda_build.check(err, "backtrack_chains")

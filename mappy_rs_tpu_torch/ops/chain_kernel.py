@@ -23,6 +23,21 @@ def window_of(window: int) -> int:
     return max(1, (window + C - 1) // C) * C
 
 
+#: largest predecessor window the kernel takes: 32 slots of 32 anchors
+#: (the consumer's register ring; the score tiles' 135 KB of shared memory)
+MAX_WINDOW = 1024
+#: largest A: anchor indices are int32 in the kernel
+MAX_ANCHORS = (1 << 31) - 64
+
+
+def chain_fits(A: int, window: int = C) -> bool:
+    """Whether the kernel takes A anchors per read at this window.  It
+    keeps only the window (f in registers, pair scores of 16 steps in
+    shared memory), so A is bounded by int32 indexing alone, and the
+    window by 1,024 anchors."""
+    return 0 <= A <= MAX_ANCHORS and window_of(window) <= MAX_WINDOW
+
+
 _FIELDS = ("rev", "rid", "rpos", "qpos", "span")
 
 
@@ -55,8 +70,10 @@ def chain_scores_kernel(anchors: dict, params: ChainParams, window: int = C):
         return chain_scores(anchors, params, H)
     if dev.type != "cuda":
         raise ValueError(f"chain_scores_kernel: unsupported device {dev}")
-    if A * 4 > cuda_build.SMEM_LIMIT:
-        raise ValueError(f"chain_scores_kernel: A={A} exceeds shared memory")
+    if not chain_fits(A, H):
+        raise ValueError(
+            f"chain_scores_kernel: A={A}, window={H} outside what the kernel "
+            f"takes (A <= {MAX_ANCHORS}, window <= {MAX_WINDOW})")
     f = torch.empty((B, A), dtype=torch.int32, device=dev)
     p = torch.empty((B, A), dtype=torch.int32, device=dev)
     if B == 0 or A == 0:

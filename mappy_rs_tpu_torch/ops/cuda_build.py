@@ -117,7 +117,7 @@ def load() -> ctypes.CDLL:
                 [vp] * 6 + [ci] * 6 + [cf, cf, ci] + [vp, vp, vp]
             )
             lib.backtrack_chains.restype = ci
-            lib.backtrack_chains.argtypes = [vp] * 8 + [ci] * 6 + [vp, vp]
+            lib.backtrack_chains.argtypes = [vp] * 8 + [ci] * 7 + [vp, vp]
             lib.extend_dp.restype = ci
             lib.extend_dp.argtypes = [vp] * 4 + [ci] * 11 + [vp] * 4
             lib.traceback_walk.restype = ci

@@ -88,3 +88,68 @@ def sweep_anchors(rng, B: int, A: int, bw: int, span: int = 15,
                         ("qpos", qpos), ("span", spans))}
     out["valid"] = torch.from_numpy(valid).to(device)
     return out
+
+
+def tile_anchors(tile: dict, reps: int) -> dict:
+    """A [B, T] anchor set repeated `reps` times along A: [B, reps*T].
+    Copy t's contig ids are shifted by t * (max rid + 1), so no chaining
+    pair crosses two copies and the chain DP of the whole is the tile's,
+    repeated (``tile_chain_result``).  Each copy keeps the tile's
+    invalid tail, so valid anchors are not a prefix of the row."""
+    import torch
+
+    out = {n: tile[n].repeat(1, reps).contiguous()
+           for n in ("rev", "rpos", "qpos", "span", "valid")}
+    T = tile["rid"].shape[1]
+    step = int(tile["rid"].max()) + 1 if tile["rid"].numel() else 1
+    shift = torch.arange(reps, dtype=torch.int32,
+                         device=tile["rid"].device).repeat_interleave(T) * step
+    out["rid"] = (tile["rid"].repeat(1, reps) + shift[None, :]).contiguous()
+    return out
+
+
+def tile_chain_result(f, p, reps: int):
+    """The chain DP (f, p) of ``tile_anchors(tile, reps)`` from the
+    tile's own (f, p): f repeated, p shifted by each copy's start."""
+    import torch
+
+    T = f.shape[1]
+    start = torch.arange(reps, dtype=torch.int32,
+                         device=f.device).repeat_interleave(T) * T
+    pt = p.repeat(1, reps)
+    return (f.repeat(1, reps).contiguous(),
+            torch.where(pt >= 0, pt + start[None, :], pt).contiguous())
+
+
+def edge_anchors(rng, A: int, device="cpu") -> dict:
+    """Four [A]-anchor rows of the chain DP's edge cases, as [4, A]:
+    0. ties: groups of 8 identical anchors stepping along one diagonal,
+       so every anchor of a group is an equal candidate for the next
+       group (the largest j must win);
+    1. best == span_i: pairs (span 15, then span 30 twenty bases further
+       on the diagonal) whose only link totals exactly span_i (p must
+       stay -1), pairs 6 kb apart;
+    2. no valid anchor;
+    3. gate-sweep anchors under a random, non-prefix valid mask."""
+    import torch
+
+    i = np.arange(A)
+    pos0 = 100 + 10 * (i // 8)
+    pair, second = i // 2, i % 2
+    pos1 = 6000 * pair + 20 * second
+    sw = sweep_anchors(rng, 1, A, 500)
+    rows = {
+        "rev": [np.zeros(A), np.zeros(A), np.zeros(A), sw["rev"][0].numpy()],
+        "rid": [np.zeros(A), np.zeros(A), np.zeros(A), sw["rid"][0].numpy()],
+        "rpos": [pos0, pos1, pos0, sw["rpos"][0].numpy()],
+        "qpos": [pos0, pos1, pos0, sw["qpos"][0].numpy()],
+        "span": [np.full(A, 15), np.where(second == 1, 30, 15),
+                 np.full(A, 15), sw["span"][0].numpy()],
+    }
+    out = {n: torch.from_numpy(np.ascontiguousarray(np.stack(v), np.int32))
+           .to(device) for n, v in rows.items()}
+    valid = np.ones((4, A), bool)
+    valid[2] = False
+    valid[3] = rng.random(A) < 0.5
+    out["valid"] = torch.from_numpy(valid).to(device)
+    return out

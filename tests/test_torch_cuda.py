@@ -24,7 +24,10 @@ from mappy_rs_tpu_torch.ops import traceback as tb
 from mappy_rs_tpu_torch.ops.chain import ChainParams, chain_scores
 from mappy_rs_tpu_torch.ops.extend import BEST_COLS, ExtendParams, extend_dp
 from mappy_rs_tpu_torch.utils.seqcodes import encode
-from mappy_rs_tpu_torch.utils.simulate import random_genome, simulate, sweep_anchors
+from mappy_rs_tpu_torch.utils.simulate import (edge_anchors, random_genome,
+                                               simulate, sweep_anchors,
+                                               tile_anchors,
+                                               tile_chain_result)
 
 # map-ont chaining parameters at k=15
 PARAMS = ChainParams(max_dist_x=5000, max_dist_y=5000, bw=500, q_span=15,
@@ -41,19 +44,66 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("A,window", [(256, 128), (1024, 512), (4096, 128)])
-def test_kernels_match_plain(cuda, A, window):
-    rng = np.random.default_rng(A)
+@pytest.mark.parametrize("A,window,skip", [
+    (256, 128, 0.0), (1024, 512, 0.0), (4096, 128, 0.0), (1024, 256, 0.0),
+    (2048, 1024, 0.0), (1024, 128, 0.37), (1024, 512, 0.37)])
+def test_kernels_match_plain(cuda, A, window, skip):
+    """Every ring size of K1 (windows 128-1024) and both of its penalty
+    paths: the dd table (skip scale 0) and the float path (skip > 0)."""
+    rng = np.random.default_rng(A + window)
+    params = PARAMS._replace(chn_pen_skip=skip * 0.01 * 15)
     anchors = sweep_anchors(rng, 64, A, PARAMS.bw, device=cuda)
     n1, n2 = ck.launches, bt.launches
-    f, p = ck.chain_scores_kernel(anchors, PARAMS, window)
-    fr, pr = chain_scores(anchors, PARAMS, ck.window_of(window))
+    f, p = ck.chain_scores_kernel(anchors, params, window)
+    fr, pr = chain_scores(anchors, params, ck.window_of(window))
     assert torch.equal(f, fr) and torch.equal(p, pr)
     assert (p >= 0).sum() > 0
     o = bt.backtrack_chains(anchors, f, p, 8, 2, 3, 40)
     r = bt.backtrack_chains_plain(anchors, f, p, 8, 2, 3, 40)
     assert torch.equal(o, r)
     assert (ck.launches, bt.launches) == (n1 + 1, n2 + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A,tile", [(32768, 0), (16384, 0), (131072, 256),
+                                    (60000, 200)])
+def test_kernels_match_plain_long_reads(cuda, A, tile):
+    """The long-read buckets' shapes: B=8 at A=32,768 (the 131,072
+    bucket), and A=131,072 from a tile of 256 anchors repeated, whose
+    K1 result is the tile's, repeated.  K2 stages p in shared memory up
+    to A=56,319: A=131,072 reads it from global memory, and A=60,000
+    also reads its candidates one at a time (A is no multiple of 128)."""
+    rng = np.random.default_rng(A)
+    if tile:
+        t = sweep_anchors(rng, 8, tile, PARAMS.bw, device=cuda)
+        anchors = tile_anchors(t, A // tile)
+        fr, pr = tile_chain_result(*chain_scores(t, PARAMS, 128), A // tile)
+    else:
+        anchors = sweep_anchors(rng, 8, A, PARAMS.bw, device=cuda)
+        fr, pr = chain_scores(anchors, PARAMS, 128)
+    f, p = ck.chain_scores_kernel(anchors, PARAMS, 128)
+    assert torch.equal(f, fr) and torch.equal(p, pr)
+    o = bt.backtrack_chains(anchors, f, p, 8, 8, 3, 40)
+    r = bt.backtrack_chains_plain(anchors, f, p, 8, 8, 3, 40)
+    assert torch.equal(o, r)
+    assert (o[:, :, 0] >= 0).sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [128, 512])
+def test_kernels_match_plain_edge_cases(cuda, window):
+    """All candidates equal (the largest j wins), a best total equal to
+    span_i (p = -1), an all-invalid read, a non-prefix valid mask."""
+    e = edge_anchors(np.random.default_rng(window), 512, device=cuda)
+    f, p = ck.chain_scores_kernel(e, PARAMS, window)
+    fr, pr = chain_scores(e, PARAMS, window)
+    assert torch.equal(f, fr) and torch.equal(p, pr)
+    assert p[0, 8:16].tolist() == [7] * 8 and p[1].eq(-1).all()
+    assert p[2].eq(-1).all() and (p[3] >= 0).sum() > 0
+    for K, cuts in ((8, 2), (4, 0)):
+        o = bt.backtrack_chains(e, f, p, K, cuts, 1, 0)
+        r = bt.backtrack_chains_plain(e, f, p, K, cuts, 1, 0)
+        assert torch.equal(o, r)
 
 
 @pytest.mark.cuda

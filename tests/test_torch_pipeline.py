@@ -223,7 +223,7 @@ def test_import_leaves_jax_out():
     path_pat = re.compile(
         r"\bmappy_rs_tpu(?:[/\\](?!ops/\w+_pallas\.py)|[\"'])")
     pkg = os.path.join(ROOT, "mappy_rs_tpu_torch")
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, n) for n in ("chip_smoke.py", "chip_kernels.py")]
     for dirpath, _dirs, names in os.walk(pkg):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh", ".cc", ".h"))]
