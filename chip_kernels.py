@@ -1,7 +1,9 @@
-"""Time the chain kernels K1 (chain DP) and K2 (chain backtrack) of this
-checkout against those of another checkout, on one NVIDIA card.
+"""Time the kernels K1 (chain DP), K2 (chain backtrack), K3 (banded
+extension DP) and K4 (traceback) of this checkout against those of
+another checkout, on one NVIDIA card.
 
     python3 chip_kernels.py [--other DIR] [--reps N] [--probes]
+                            [--ext-shapes QxTxWxJ,...]
 
 Each measurement runs in its own process (the two checkouts' packages
 share a name), in turns: other, this, this, other, ... (--reps rounds).
@@ -9,11 +11,16 @@ A process builds its checkout's kernels, makes the same inputs from the
 same seed (a 32 Mbp random genome; the front end's anchors of 256
 simulated 1 kb reads at A=256; B=8 x A=32,768 gate-sweep anchors; the
 front end's anchors of 8 simulated 100 kb reads at 5% error in the
-131,072 bucket, B=8 x A=32,768, as chip_smoke.py's phase 8 makes them),
-and times each kernel two ways with chip_smoke.py's helpers: CUDA
-events around 200 (20) eager wrapper calls (cuda_ms), and CUDA events
-around the replay of a CUDA graph of the same calls (graph_ms), which
-leaves out the host's launch cost.
+131,072 bucket, B=8 x A=32,768, as chip_smoke.py's phase 8 makes them;
+for K3/K4 the extension jobs of the 256 reads: chip_smoke.py's J=256,
+(1024, 1024) batch, timed at W=64, and batches of real jobs at each
+group shape of --ext-shapes, by default the two that chip_smoke.py's
+phase 7 logs as launched most under extension_backend "device"), and
+times each kernel two ways with chip_smoke.py's helpers: CUDA events
+around 200 (20) eager wrapper calls (cuda_ms), and CUDA events around
+the replay of a CUDA graph of the same calls (graph_ms), which leaves
+out the host's launch cost.  K3/K4 also give µs per serial step and the
+bound (chip_smoke.py time_ext).
 
 --probes adds, in this checkout's processes, device times (graph_ms)
 of code paths that the default inputs do not take:
@@ -22,7 +29,14 @@ of code paths that the default inputs do not take:
   - K2 with its shared memory capped at the `used` bitmask plus 0, 1, 2
     and 4 rows of A int32 (what each staging level of the kernel may
     take), and with f and valid at addresses that are not 16- or
-    4-byte aligned (copies at an offset of one element).
+    4-byte aligned (copies at an offset of one element);
+  - K1's and K2's plain versions, once each, on the real 100 kb anchors;
+  - K3's block kernel against its warp kernel (the same outputs,
+    checked) at W = 64, 128, 160, 192 and 256 (the switch), on the J=256
+    batch;
+  - K4 by slab size (SLAB_BYTES 0 = no slabs, 1 = two diagonals per
+    slab, 2,048 ... 24,576), the same outputs checked, on every K3/K4
+    batch.
 Prints one JSON line per process and a summary line; writes
 chiprun_out/chip_kernels.json.
 """
@@ -36,11 +50,15 @@ import sys
 
 SEED = 20261016
 SHAPES = ("256x256", "8x32768", "8x32768real")
+#: K3/K4 shapes (QMAX x TMAX x W x J): the main timing batch, then the
+#: two group shapes launched most under "device" (chip_smoke.py phase 7)
+EXT_MAIN = "1024x1024x64x256"
+EXT_REAL = "512x512x32x512,1024x1024x32x256"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
-def measure(cs, probes: bool) -> dict:
-    """The child process: time K1 and K2 of the package on sys.path."""
+def measure(cs, probes: bool, ext_shapes) -> dict:
+    """The child process: time K1-K4 of the package on sys.path."""
     import numpy as np
     import torch
 
@@ -48,6 +66,7 @@ def measure(cs, probes: bool) -> dict:
     from mappy_rs_tpu_torch.ops import backtrack as bt
     from mappy_rs_tpu_torch.ops import chain_kernel as ck
     from mappy_rs_tpu_torch.ops import cuda_build
+    from mappy_rs_tpu_torch.ops.chain import chain_scores
     from mappy_rs_tpu_torch.ops.lookup import collect_anchors
     from mappy_rs_tpu_torch.ops.sketch import sketch_compact
     from mappy_rs_tpu_torch.utils.seqcodes import encode
@@ -95,11 +114,100 @@ def measure(cs, probes: bool) -> dict:
         rec = {"K1_eager_ms": cs.cuda_ms(k1, n),
                "K1_graph_ms": cs.graph_ms(k1, n),
                "K2_eager_ms": cs.cuda_ms(k2, n),
-               "K2_graph_ms": cs.graph_ms(k2, n)}
+               "K2_graph_ms": cs.graph_ms(k2, n),
+               "K1_bound_ms": cs.k1_bound(an, ck.window_of(128))["bound_ms"],
+               "K2_bound_ms": cs.k2_bound(an, f, p, 8, cuts, ms)["bound_ms"]}
         if probes:
             rec.update(probe(cs, an, f, p, params, cuts, mc, ms, n))
+            if label == "8x32768real":  # the plain versions, once each
+                rec["K1_plain_ms"] = cs.cuda_ms(
+                    lambda: chain_scores(an, params, 128), 1, warm=False)
+                rec["K2_plain_ms"] = cs.cuda_ms(
+                    lambda: bt.backtrack_chains_plain(an, f, p, 8, cuts, mc,
+                                                      ms), 1, warm=False)
         out[label] = rec
+    out.update(measure_ext(cs, al, reads, probes, ext_shapes))
     return out
+
+
+def measure_ext(cs, al, reads, probes: bool, ext_shapes) -> dict:
+    """K3 and K4 at the main batch and the real group shapes."""
+    import numpy as np
+
+    from mappy_rs_tpu_torch.ops import extend_kernel as ek
+    from mappy_rs_tpu_torch.ops import traceback as tb
+    from mappy_rs_tpu_torch.ops.extend import extend_dp
+
+    eng = al._engine
+    params, end_bonus = eng._ext_params, eng.opt.end_bonus
+    OPS = eng.cfg.traceback_max_ops
+    jobs = cs.real_ext_jobs(al, reads)
+    out = {}
+    for label in ext_shapes:
+        QMAX, TMAX, W, J = (int(x) for x in label.split("x"))
+        if label == EXT_MAIN:
+            b = cs.ext_batch(jobs, np.random.default_rng(SEED + 5), J, QMAX,
+                             TMAX)
+        else:
+            b = cs.class_batch(eng, jobs, QMAX, TMAX, W, J)
+        n = 20 if J * QMAX >= 256 * 1024 else 200
+        tm = cs.time_ext(ek, tb, extend_dp, b, W, params, end_bonus, OPS, n,
+                         0, plain=False)
+        rec = {}
+        for key, name in (("K3", "extend_dp"), ("K4", "traceback")):
+            r = tm[name]
+            rec.update({f"{key}_eager_ms": r["ms"], f"{key}_graph_ms": r["graph_ms"],
+                        f"{key}_us_per_step": r["us_per_step"],
+                        f"{key}_steps": r["steps"], f"{key}_bound_ms": r["bound_ms"]})
+        if probes:
+            rec.update(probe_ext(cs, b, W, params, end_bonus, OPS, n,
+                                 label == EXT_MAIN))
+        out["ext:" + label] = rec
+    return out
+
+
+def probe_ext(cs, b, W, params, end_bonus, OPS, n, main: bool) -> dict:
+    """Device times of K3's block kernel against its warp kernel (on the
+    main batch, at W and at W=256) and of K4 by slab size."""
+    import torch
+
+    from mappy_rs_tpu_torch.ops import extend_kernel as ek
+    from mappy_rs_tpu_torch.ops import traceback as tb
+
+    q, t, ql, tl, mode = (torch.from_numpy(b[k]).cuda()
+                          for k in ("q", "t", "ql", "tl", "mode"))
+    rec = {}
+    if main:
+        for w in sorted({W, 128, 160, 192, 256}):
+            want = ek.extend_dp_kernel(q, t, ql, tl, w, params)
+            warp_max = ek.WARP_MAX_W
+            try:
+                for name, lim in (("warp", warp_max), ("block", 0)):
+                    ek.WARP_MAX_W = lim
+                    got = ek.extend_dp_kernel(q, t, ql, tl, w, params)
+                    if not (torch.equal(got["dirs"], want["dirs"])
+                            and torch.equal(got["best"], want["best"])):
+                        raise AssertionError(f"K3 {name} kernel differs, W={w}")
+                    rec[f"K3_{name}_W{w}_graph_ms"] = cs.graph_ms(
+                        lambda: ek.extend_dp_kernel(q, t, ql, tl, w, params), n)
+            finally:
+                ek.WARP_MAX_W = warp_max
+    got = ek.extend_dp_kernel(q, t, ql, tl, W, params)
+    walk = lambda: tb.traceback_device(got["dirs"], got["best"], ql, tl,  # noqa: E731
+                                       mode, W, OPS, end_bonus)
+    want = walk()
+    slab = tb.SLAB_BYTES
+    try:
+        for nbytes in (0, 1, 2048, 4096, 8192, 16384, 24576):
+            tb.SLAB_BYTES = nbytes
+            o, i = walk()
+            if not (torch.equal(o, want[0]) and torch.equal(i, want[1])):
+                raise AssertionError(f"K4 at SLAB_BYTES={nbytes} differs")
+            rec[f"K4_slab{nbytes}_D{tb.slab_depth(W)}_graph_ms"] = \
+                cs.graph_ms(walk, n)
+    finally:
+        tb.SLAB_BYTES = slab
+    return rec
 
 
 def probe(cs, an, f, p, params, cuts, mc, ms, n) -> dict:
@@ -155,6 +263,8 @@ def main() -> int:
     ap.add_argument("--other", help="root of another checkout to compare")
     ap.add_argument("--reps", type=int, default=1)
     ap.add_argument("--probes", action="store_true")
+    ap.add_argument("--ext-shapes", default=EXT_REAL,
+                    help="K3/K4 group shapes QMAXxTMAXxWxJ, comma-separated")
     ap.add_argument("--child", metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
@@ -162,7 +272,8 @@ def main() -> int:
 
         sys.path[0] = args.child  # import the package of ROOT
         probes = args.probes and os.path.abspath(args.child) == ROOT
-        print(json.dumps(measure(cs, probes)), flush=True)
+        ext = [EXT_MAIN] + [x for x in args.ext_shapes.split(",") if x]
+        print(json.dumps(measure(cs, probes, ext)), flush=True)
         return 0
     import torch
 
@@ -178,7 +289,8 @@ def main() -> int:
     runs = []
     for name, root in order:
         cmd = [sys.executable, os.path.abspath(__file__), "--child", root]
-        res = subprocess.run(cmd + ["--probes"] * args.probes, cwd=root,
+        cmd += ["--ext-shapes", args.ext_shapes] + ["--probes"] * args.probes
+        res = subprocess.run(cmd, cwd=root,
                              capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             print(res.stdout, res.stderr, file=sys.stderr)
@@ -192,7 +304,7 @@ def main() -> int:
         mine = [r for r in runs if r["checkout"] == name]
         summary[name] = {
             shape: {k: [r[shape][k] for r in mine] for k in mine[0][shape]}
-            for shape in SHAPES}
+            for shape in mine[0] if shape in SHAPES or shape.startswith("ext:")}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_kernels.json"), "w") as fh:
         json.dump({"runs": runs, "summary": summary}, fh, indent=1)

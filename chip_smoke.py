@@ -28,20 +28,28 @@ non-zero):
      torch.cuda.set_sync_debug_mode("error"), and 64 reads must map
      identically on the card and through the CPU plain versions.
   5. K3 (banded extension DP): kernel == plain version, exactly (dirs
-     and the six trackers), at J=256, (QMAX, TMAX) in {(512, 512),
-     (1024, 1024)} and W in {32, 64, 128}, on the extension jobs that
+     and the six trackers), at J=253, (512, 512), W in {32, 64, 72, 96,
+     128, 160, 256, 288} (both sides of the warp/block switch at 256; 72
+     no multiple of 32), and
+     J=256, (1024, 1024), W in {32, 64, 128}, on the extension jobs that
      the pipeline builds for 256 of phase 4's reads plus seeded
      synthetic jobs (8% error with indel runs, N bases, drift, padded
-     empty jobs, one indel-dense job).
+     empty jobs, one indel-dense job); at W = 1536 and 6144 (the block
+     kernel, rows in global scratch at 6144) on 8 synthetic jobs; and at
+     the two group shapes (QMAX, TMAX, W, J) that "device" launches most
+     for 2,048 of phase 4's reads, on real jobs of that class.
   6. K4 (traceback): kernel == plain version, exactly, on phase 5's
-     direction bytes for modes 0, 1 and mixed; the indel-dense job
-     must overflow the 128-run table.
+     direction bytes for modes 0, 1 and mixed (mixed only at the extra
+     widths); the indel-dense job must overflow the 128-run table.  K3
+     and K4 are timed (eager, graph replay, plain; µs per serial step;
+     bound) at J=256, (1024, 1024), W=64 and at the two real shapes.
   7. the device extension backends at users' size: phase 4's reads
      through enable_threading(4) + map_batch with extension_backend
      "host", "device" and "device_dl"; each device backend must place
      >= 99% within 100 bp and give the host backend's Mappings field
      for field (cs and MD too, through the engine's batch call); K3 and
-     K4 must launch under "device", K4 never under "device_dl".
+     K4 must launch under "device", K4 never under "device_dl"; the
+     histogram of K3's launch shapes is logged per backend.
   8. long reads: 64 simulated 100 kb reads at 5% error against phase
      4's genome through enable_threading(4) + map_batch at the default
      config (131,072 bucket, B=8, A=32,768); >= 99% placed (the
@@ -50,8 +58,8 @@ non-zero):
      of the reads map identically on the card and through the CPU
      plain versions.
 Prints per-kernel times (CUDA events around eager calls, the JSON
-line's `ms`; K1 and K2 also as CUDA-graph replays, `graph_ms`, which
-leave out the host's launch cost) beside the plain versions' and each
+line's `ms`; also as CUDA-graph replays, `graph_ms`, which leave out
+the host's launch cost) beside the plain versions' and each
 kernel's bound (the larger of the bytes this run's data needs over
 3.35 TB/s and its int32 operations over 16.7 Top/s), the kernels' JSON
 line, the card line, and last the result line.  Exits non-zero without
@@ -627,12 +635,164 @@ def band_cells(ql: np.ndarray, tl: np.ndarray, W: int, S: int) -> int:
     return int(np.clip(i_hi - i_lo + 1, 0, None).sum())
 
 
-def phase_ext_kernels(al, reads, rng) -> dict:
+def pow2_at_least(n: int, lo: int) -> int:
+    p = lo
+    while p < n:
+        p <<= 1
+    return p
+
+
+def ext_class(eng, job):
+    """The (QMAX, TMAX, W) group that the device backends' _run_jobs
+    (models/pipeline.py) gives a job, or None for a job they leave to the
+    host (empty, or small: q <= 64 and t <= 160 bases)."""
+    ql, tl = len(job.q), len(job.t)
+    if ql == 0 or tl == 0 or (ql <= 64 and tl <= 160):
+        return None
+    QMAX, TMAX = pow2_at_least(ql, 64), pow2_at_least(tl, 64)
+    W = eng._mid_band(abs(ql - tl)) if job.kind == "mid" else eng.flank_band
+    return QMAX, TMAX, min(W, pow2_at_least(QMAX + TMAX, 128))
+
+
+def class_batch(eng, jobs, QMAX: int, TMAX: int, W: int, J: int) -> dict:
+    """J jobs of one real group shape: the real jobs of that class, in
+    turn (repeated when there are fewer than J); mode 0 for mid jobs, 1
+    for flanks."""
+    fit = [j for j in jobs if ext_class(eng, j) == (QMAX, TMAX, W)]
+    if not fit:
+        raise AssertionError(f"no real job of class {(QMAX, TMAX, W)}")
+    q = np.full((J, QMAX), 4, np.uint8)
+    t = np.full((J, TMAX), 4, np.uint8)
+    ql = np.zeros(J, np.int32)
+    tl = np.zeros(J, np.int32)
+    mode = np.ones(J, np.int32)
+    for ji in range(J):
+        j = fit[ji % len(fit)]
+        q[ji, : len(j.q)] = j.q
+        t[ji, : len(j.t)] = j.t
+        ql[ji], tl[ji] = len(j.q), len(j.t)
+        mode[ji] = 0 if j.kind == "mid" else 1
+    return {"q": q, "t": t, "ql": ql, "tl": tl, "mode": mode,
+            "n_real": len(fit)}
+
+
+def launched_shapes(al, payload, backend: str) -> dict:
+    """K3's launches by (QMAX, TMAX, W, J) while map_batch runs `payload`
+    through enable_threading(4) under `backend`."""
+    from mappy_rs_tpu_torch.ops import extend_kernel as ek
+
+    eng = al._engine
+    eng.cfg.extension_backend = backend
+    al.enable_threading(4)
+    ek.shapes.clear()
+    list(al.map_batch(payload))
+    al.enable_threading(0)
+    eng.cfg.extension_backend = "auto"
+    return dict(ek.shapes)
+
+
+def walk_steps(tb, dirs, best, ql, tl, mode, W: int, end_bonus: int):
+    """Each job's K4 walk steps (one byte read and one op each), from
+    the kernel's runs with a table wide enough for every walk."""
     import torch
 
+    o, i = tb.traceback_device(dirs, best, ql, tl, mode, W, 4096, end_bonus)
+    if int(i[:, 5].sum()):
+        raise AssertionError("a walk overflowed 4,096 runs")
+    return torch.where(o >= 0, o >> 4, 0).sum(dim=1)
+
+
+def time_ext(ek, tb, extend_dp, b: dict, W: int, params, end_bonus: int,
+             OPS: int, n_k: int, n_p: int, plain: bool = True) -> dict:
+    """K3 and K4 of the given modules on one batch: per eager call
+    (`ms`, CUDA events), on the device (`graph_ms`, CUDA-graph replay),
+    the plain versions (`plain_ms`, when `plain`), µs per serial step
+    (K3: per diagonal of the longest job, qlen + tlen - 1 of them; K4: per
+    step of the longest walk) and the bound of this batch's work."""
+    import torch
+
+    from mappy_rs_tpu_torch.ops.traceback import traceback_plain
+
+    q, t, ql, tl, mode = (torch.from_numpy(b[k]).cuda()
+                          for k in ("q", "t", "ql", "tl", "mode"))
+    J, QMAX = b["q"].shape
+    TMAX = b["t"].shape[1]
+    S = QMAX + TMAX - 1
+    got = ek.extend_dp_kernel(q, t, ql, tl, W, params)
+    best = got["best"]
+    k3_fn = lambda: ek.extend_dp_kernel(q, t, ql, tl, W, params)  # noqa: E731
+    k4_fn = lambda: tb.traceback_device(  # noqa: E731
+        got["dirs"], best, ql, tl, mode, W, OPS, end_bonus)
+    out = {}
+    for name, fn, pl in (
+        ("extend_dp", k3_fn, lambda: extend_dp(q, t, ql, tl, W, params)),
+        ("traceback", k4_fn, lambda: traceback_plain(
+            got["dirs"], best, ql, tl, mode, W, OPS, end_bonus)),
+    ):
+        if plain:
+            k, p = timed_pair(fn, pl, n_k, n_p)
+        else:
+            k, p = (cuda_ms(fn, n_k) + cuda_ms(fn, n_k)) / 2, None
+        out[name] = {"ms": k, "graph_ms": graph_ms(fn, n_k), "plain_ms": p}
+    lens = b["ql"].astype(np.int64) + b["tl"]
+    diags = int(np.where((b["ql"] > 0) & (b["tl"] > 0), lens - 1, 0).max())
+    cells = band_cells(b["ql"], b["tl"], W, S)
+    out["extend_dp"].update(
+        steps=diags, us_per_step=1e3 * out["extend_dp"]["graph_ms"] / diags,
+        **bound(J * (QMAX + TMAX) + 8 * J + S * J * W + 24 * J,
+                cells * OPS_PER_CELL_K3))
+    steps = walk_steps(tb, got["dirs"], best, ql, tl, mode, W, end_bonus)
+    longest, total = int(steps.max()), int(steps.sum())
+    out["traceback"].update(
+        steps=longest, steps_total=total,
+        us_per_step=1e3 * out["traceback"]["graph_ms"] / max(longest, 1),
+        **bound(total + 24 * J + 12 * J + J * (OPS + 8) * 4,
+                total * OPS_PER_STEP_K4))
+    return out
+
+
+def check_ext(ek, tb, extend_dp, b: dict, W: int, params, end_bonus: int,
+              OPS: int, modes, label: str, res: dict) -> None:
+    """K3 and K4 == their plain versions, exactly, on one batch."""
+    import torch
+
+    from mappy_rs_tpu_torch.ops.extend import BEST_COLS
+
+    q, t, ql, tl, mode = (torch.from_numpy(b[k]).cuda()
+                          for k in ("q", "t", "ql", "tl", "mode"))
+    got = ek.extend_dp_kernel(q, t, ql, tl, W, params)
+    want = extend_dp(q, t, ql, tl, W, params)
+    torch.cuda.synchronize()
+    err = max(max_err(got[k], want[k]) for k in ("dirs",) + BEST_COLS)
+    n_end = int((want["end_sc"] > 0).sum())
+    log(f"K3 {label} W={W}: {n_end} end cells reached, max_abs_err={err}")
+    if err != 0:
+        raise AssertionError(f"K3 kernel != plain ({label}, W={W})")
+    res["extend_dp"]["max_abs_err"] = max(res["extend_dp"]["max_abs_err"], err)
+    best = torch.stack([want[c] for c in BEST_COLS], 1)
+    for mname in modes:
+        m = {"0": torch.zeros_like(mode), "1": torch.ones_like(mode),
+             "mixed": mode}[mname]
+        o, i = tb.traceback_device(got["dirs"], got["best"], ql, tl, m, W,
+                                   OPS, end_bonus)
+        o2, i2 = tb.traceback_plain(want["dirs"], best, ql, tl, m, W, OPS,
+                                    end_bonus)
+        torch.cuda.synchronize()
+        err = max(max_err(o, o2), max_err(i, i2))
+        log(f"K4 {label} W={W} mode {mname}: started {int(i[:, 4].sum())}, "
+            f"overflowed {int(i[:, 5].sum())}, max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"K4 kernel != plain ({label}, W={W}, {mname})")
+        res["traceback"]["max_abs_err"] = max(res["traceback"]["max_abs_err"], err)
+        if b.get("n_dense") and mname == "0":
+            # the indel-dense job sits right after the real and synthetic ones
+            res["n_ovf"] += int(i[b["n_real"] + 24, 5])
+
+
+def phase_ext_kernels(al, reads, rng) -> dict:
     from mappy_rs_tpu_torch.ops import extend_kernel as ek
     from mappy_rs_tpu_torch.ops import traceback as tb
-    from mappy_rs_tpu_torch.ops.extend import BEST_COLS, extend_dp
+    from mappy_rs_tpu_torch.ops.extend import extend_dp
 
     eng = al._engine
     params, end_bonus = eng._ext_params, eng.opt.end_bonus
@@ -640,80 +800,62 @@ def phase_ext_kernels(al, reads, rng) -> dict:
     jobs = real_ext_jobs(al, reads)
     log(f"extension jobs of 256 reads: {len(jobs)} "
         f"({sum(j.kind == 'mid' for j in jobs)} mid)")
-    res = {"extend_dp": {"max_abs_err": 0}, "traceback": {"max_abs_err": 0}}
-    timing_batch = None
-    n_ovf = 0
-    for QMAX, TMAX in ((512, 512), (1024, 1024)):
-        b = ext_batch(jobs, rng, 256, QMAX, TMAX)
-        q, t, ql, tl, mode = (torch.from_numpy(b[k]).cuda()
-                              for k in ("q", "t", "ql", "tl", "mode"))
-        for W in (32, 64, 128):
-            got = ek.extend_dp_kernel(q, t, ql, tl, W, params)
-            want = extend_dp(q, t, ql, tl, W, params)
-            torch.cuda.synchronize()
-            err = max(max_err(got[k], want[k]) for k in ("dirs",) + BEST_COLS)
-            n_end = int((want["end_sc"] > 0).sum())
-            log(f"K3 J=256 ({QMAX}, {TMAX}) W={W}: {b['n_real']} real jobs, "
-                f"{n_end} end cells reached, max_abs_err={err}")
-            if err != 0:
-                raise AssertionError(f"K3 kernel != plain ({QMAX}, {W})")
-            res["extend_dp"]["max_abs_err"] = max(res["extend_dp"]["max_abs_err"], err)
-            best = torch.stack([want[c] for c in BEST_COLS], 1)
-            for mname, m in (("0", torch.zeros_like(mode)),
-                             ("1", torch.ones_like(mode)), ("mixed", mode)):
-                o, i = tb.traceback_device(got["dirs"], got["best"], ql, tl, m,
-                                           W, OPS, end_bonus)
-                o2, i2 = tb.traceback_plain(want["dirs"], best, ql, tl, m, W,
-                                            OPS, end_bonus)
-                torch.cuda.synchronize()
-                err = max(max_err(o, o2), max_err(i, i2))
-                started, ovf = int(i[:, 4].sum()), int(i[:, 5].sum())
-                log(f"K4 ({QMAX}, {TMAX}) W={W} mode {mname}: started "
-                    f"{started}, overflowed {ovf}, max_abs_err={err}")
-                if err != 0:
-                    raise AssertionError(f"K4 kernel != plain ({QMAX}, {W}, {mname})")
-                res["traceback"]["max_abs_err"] = max(res["traceback"]["max_abs_err"], err)
-                if b["n_dense"] and mname == "0":
-                    # the indel-dense job sits right after the real and
-                    # synthetic ones
-                    n_ovf += int(i[b["n_real"] + 24, 5])
-            if (QMAX, W) == (1024, 64):
-                timing_batch = (b, q, t, ql, tl, mode, got, best)
-    if n_ovf == 0:
+    res = {"extend_dp": {"max_abs_err": 0}, "traceback": {"max_abs_err": 0},
+           "n_ovf": 0}
+    # J=256 and 253 (no multiple of the 4 jobs per block of K3's and K4's
+    # warp kernels); W on both sides of K3's warp/block switch (256/288),
+    # and 72 (no multiple of 32 or 16: K3's block kernel, K4 without slabs)
+    for QMAX, TMAX, J, Ws in ((512, 512, 253, (32, 64, 72, 96, 128, 160, 256, 288)),
+                              (1024, 1024, 256, (32, 64, 128))):
+        b = ext_batch(jobs, rng, J, QMAX, TMAX)
+        log(f"batch J={J} ({QMAX}, {TMAX}): {b['n_real']} real jobs")
+        for W in Ws:
+            modes = ("0", "1", "mixed") if W in (32, 64, 128) else ("mixed",)
+            check_ext(ek, tb, extend_dp, b, W, params, end_bonus, OPS, modes,
+                      f"J={J} ({QMAX}, {TMAX})", res)
+        if QMAX == 1024:
+            timing_batch = b
+    if res.pop("n_ovf") == 0:
         raise AssertionError("the indel-dense job never overflowed OPS")
+    # bands past 1,024 lanes (K3's block kernel; W=6144 keeps its rows in
+    # the global scratch) on a few seeded jobs
+    wide = ext_batch([], rng, 32, 1024, 1024)  # 24 synthetic jobs first
+    wide = {k: (v[16:24] if isinstance(v, np.ndarray) else 0)
+            for k, v in wide.items()}
+    for W in (1536, 6144):
+        check_ext(ek, tb, extend_dp, wide, W, params, end_bonus, OPS,
+                  ("mixed",), "J=8 (1024, 1024)", res)
 
-    # times and bounds at J=256, (1024, 1024), W=64
-    b, q, t, ql, tl, mode, got, best = timing_batch
-    W, S = 64, 2047
-    k, pl = timed_pair(lambda: ek.extend_dp_kernel(q, t, ql, tl, W, params),
-                       lambda: extend_dp(q, t, ql, tl, W, params), 20, 1)
-    res["extend_dp"].update(ms=k, plain_ms=pl)
-    log(f"K3 time at J=256 (1024, 1024) W=64: kernel {k:.4f} ms, plain {pl:.3f} ms")
-    k, pl = timed_pair(
-        lambda: tb.traceback_device(got["dirs"], got["best"], ql, tl, mode, W,
-                                    OPS, end_bonus),
-        lambda: tb.traceback_plain(got["dirs"], best, ql, tl, mode, W, OPS,
-                                   end_bonus), 50, 1)
-    res["traceback"].update(ms=k, plain_ms=pl)
-    log(f"K4 time at J=256 (1024, 1024) W=64 mixed modes: kernel {k:.4f} ms, "
-        f"plain {pl:.3f} ms")
-    J = 256
-    cells = band_cells(b["ql"], b["tl"], W, S)
-    res["extend_dp"].update(bound(J * (1024 + 1024) + 8 * J + S * J * W + 24 * J,
-                                  cells * OPS_PER_CELL_K3))
-    o, i = tb.traceback_device(got["dirs"], got["best"], ql, tl, mode, W, OPS,
-                               end_bonus)
-    i = i.cpu().numpy()
-    on = i[:, 4] == 1
-    # a walk from (i0, j0) to (fi, fj) visits at least max(di, dj) cells
-    steps = int(np.maximum(i[on, 6] - i[on, 1], i[on, 7] - i[on, 2]).sum())
-    res["traceback"].update(bound(steps + 24 * J + 12 * J + J * (OPS + 8) * 4,
-                                  steps * OPS_PER_STEP_K4))
-    log(f"band cells {cells}, walk steps >= {steps}")
-    for name in ("extend_dp", "traceback"):
-        r = res[name]
-        log(f"{name} bound: {r['bound_ms']:.5f} ms ({r['bound_by']}; "
-            f"{r['bytes']:.0f} B, {r['ops']:.0f} int32 ops)")
+    # the group shapes the device backend launches most (2,048 of phase
+    # 4's reads), checked and timed at real jobs of their class
+    shapes = launched_shapes(al, [{"i": i, "seq": s} for i, s in
+                                  enumerate(reads[:2048])], "device")
+    top = sorted(shapes.items(), key=lambda kv: (-kv[1], kv[0]))[:2]
+    log(f"K3 launches by (QMAX, TMAX, W, J), 2,048 reads under 'device': "
+        f"{sorted(shapes.items(), key=lambda kv: -kv[1])}")
+    runs = {"main": (timing_batch, 64, 20, 1)}
+    for (QMAX, TMAX, W, J), n in top:
+        b = class_batch(eng, jobs, QMAX, TMAX, W, J)
+        check_ext(ek, tb, extend_dp, b, W, params, end_bonus, OPS,
+                  ("0", "1", "mixed"), f"real group J={J} ({QMAX}, {TMAX})",
+                  res)
+        runs[f"{QMAX}x{TMAX}x{W}x{J}"] = (b, W, 200, 3)
+    for label, (b, W, n_k, n_p) in runs.items():
+        tm = time_ext(ek, tb, extend_dp, b, W, params, end_bonus, OPS, n_k, n_p)
+        J, QMAX = b["q"].shape
+        for name, r in tm.items():
+            log(f"{name} at J={J} ({QMAX}, {b['t'].shape[1]}) W={W}: "
+                f"{r['ms']:.4f} ms per eager call, {r['graph_ms']:.4f} ms on "
+                f"the device (graph replay), plain {r['plain_ms']:.3f} ms; "
+                f"{r['steps']} serial steps, {r['us_per_step']:.4f} us per "
+                f"step; bound {r['bound_ms']:.5f} ms ({r['bound_by']}; "
+                f"{r['bytes']:.0f} B, {r['ops']:.0f} int32 ops)")
+            if label == "main":
+                res[name].update(r)
+            else:
+                res[name].setdefault("real", {})[label] = dict(
+                    r, launches_per_2048_reads=shapes[tuple(
+                        int(x) for x in label.split("x"))])
     return res
 
 
@@ -738,12 +880,14 @@ def phase_ext_slice(al, reads, starts) -> dict:
         list(al.map_batch(payload[:512]))  # warm the path
         al.reset_metrics()
         ek.launches = 0
+        ek.shapes.clear()
         tb.launches = 0
         t0 = time.perf_counter()
         out = {d["i"]: [mapping_fields(m) for m in ms]
                for ms, d in al.map_batch(payload)}
         wall = time.perf_counter() - t0
         launches = {"extend_dp": ek.launches, "traceback": tb.launches}
+        shapes = sorted(ek.shapes.items(), key=lambda kv: (-kv[1], kv[0]))
         al.enable_threading(0)
         m = dict(al.metrics)
         placed = sum(1 for i, s in enumerate(starts)
@@ -753,6 +897,7 @@ def phase_ext_slice(al, reads, starts) -> dict:
         runs[backend] = {"out": out, "wall_s": wall,
                          "reads_per_s": len(reads) / wall, "placed": placed,
                          "launches": launches, "groups": groups,
+                         "k3_shapes": [[*k, n] for k, n in shapes],
                          "dl_bytes_per_group": per_group,
                          "metrics": {k: m[k] for k in m if k.startswith("time_")}}
         log(f"{backend}: {len(reads)} reads in {wall:.3f} s = "
@@ -760,6 +905,8 @@ def phase_ext_slice(al, reads, starts) -> dict:
             f"{placed} ({100.0 * placed / len(reads):.2f}%); launches "
             f"{launches}; job groups {groups:.0f}, downloaded "
             f"{per_group:.0f} B per group")
+        if shapes:
+            log(f"{backend}: K3 launches by (QMAX, TMAX, W, J): {shapes}")
         log(f"{backend} engine metrics: " + json.dumps(
             {k: m[k] for k in sorted(m) if k.startswith(("time_", "calls_"))}))
     eng.cfg.extension_backend = "auto"
@@ -946,8 +1093,8 @@ def main() -> int:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             # no single PyTorch call computes any of these four functions
             "library_ms": None,
-            # K1, K2: the device time alone (CUDA-graph replay)
-            **({"graph_ms": k["graph_ms"]} if "graph_ms" in k else {}),
+            # the device time alone (CUDA-graph replay)
+            "graph_ms": k["graph_ms"],
         })
     record = {"card": info["card"], "kernels": kernels,
               "reads_per_s": sl["reads_per_s"], "front_end_ms": sl["fe_ms"],
@@ -955,6 +1102,8 @@ def main() -> int:
               "extension_backends": ext, "long_reads": long_reads,
               "long_kernels": {n: kern[n].get("long") for n in
                                ("chain_dp", "backtrack_chains")},
+              "ext_real_shapes": {n: kern[n].get("real") for n in
+                                  ("extend_dp", "traceback")},
               "seconds": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:

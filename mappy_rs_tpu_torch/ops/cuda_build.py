@@ -119,9 +119,9 @@ def load() -> ctypes.CDLL:
             lib.backtrack_chains.restype = ci
             lib.backtrack_chains.argtypes = [vp] * 8 + [ci] * 7 + [vp, vp]
             lib.extend_dp.restype = ci
-            lib.extend_dp.argtypes = [vp] * 4 + [ci] * 11 + [vp] * 4
+            lib.extend_dp.argtypes = [vp] * 4 + [ci] * 11 + [vp] * 3 + [ci, vp]
             lib.traceback_walk.restype = ci
-            lib.traceback_walk.argtypes = [vp] * 5 + [ci] * 5 + [vp] * 3
+            lib.traceback_walk.argtypes = [vp] * 5 + [ci] * 6 + [vp] * 3
             _lib = lib
         return _lib
 

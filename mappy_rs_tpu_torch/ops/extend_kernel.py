@@ -17,6 +17,7 @@ the engine's worker threads overlap.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 from typing import Dict, Optional, Tuple
 
@@ -29,8 +30,15 @@ from .traceback import traceback_device
 
 #: kernel launches since the last reset (plain-version calls not counted)
 launches = 0
+#: the same launches by shape (QMAX, TMAX, W, J), reset with ``launches``
+shapes: collections.Counter = collections.Counter()
 
-_ROWS = 11  # DP state rows the kernel keeps per job (csrc/extend.cu ROWS)
+#: widest band of K3's warp kernel (a warp per job, W / 32 band lanes per
+#: thread, at most csrc/extend.cu WARP_MAX_C = 8); wider bands, and bands
+#: that are no multiple of 32 (the pipeline makes none), take the block
+#: kernel.  The choice is by shape only (csrc/extend.cu says why 256).
+WARP_MAX_W = 256
+_ROWS = 11  # DP state rows of the block kernel per job (csrc/extend.cu ROWS)
 # shared memory left for the rows beside the kernel's static variables
 _ROW_SMEM = cuda_build.SMEM_LIMIT - 1024
 
@@ -71,9 +79,11 @@ def extend_dp_kernel(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
     dirs = torch.empty((S, J, W), dtype=torch.uint8, device=dev)
     best = torch.empty((J, 6), dtype=torch.int32, device=dev)
     if J:
-        # rows beyond shared memory live in a global scratch buffer
+        warp = W <= WARP_MAX_W and W % 32 == 0
+        # the block kernel's rows beyond shared memory live in a global
+        # scratch buffer
         scratch: Optional[torch.Tensor] = None
-        if _ROWS * (W + 2) * 4 > _ROW_SMEM:
+        if not warp and _ROWS * (W + 2) * 4 > _ROW_SMEM:
             scratch = torch.empty((J, _ROWS * (W + 2)), dtype=torch.int32,
                                   device=dev)
         lib = cuda_build.load()
@@ -83,11 +93,12 @@ def extend_dp_kernel(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
                 q.data_ptr(), t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
                 J, QMAX, TMAX, W, p.a, p.b, p.q, p.e, p.q2, p.e2, p.sc_ambi,
                 dirs.data_ptr(), best.data_ptr(),
-                None if scratch is None else scratch.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), int(warp),
                 cuda_build.stream_handle(dev),
             )
         cuda_build.check(err, "extend_dp")
         launches += 1
+        shapes[(QMAX, TMAX, W, J)] += 1
     out = {name: best[:, k] for k, name in enumerate(BEST_COLS)}
     out["dirs"] = dirs
     out["best"] = best

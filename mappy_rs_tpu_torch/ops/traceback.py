@@ -6,9 +6,10 @@ Port of the JAX package's ops/traceback_pallas.py ``traceback_pallas``.
 over the anti-diagonals for all J jobs at once, where each job moves
 when the sweep reaches its current cell (a match consumes two
 diagonals, a gap op one, a gap-state entry none).  The CUDA kernel walks
-each job with a plain loop, which visits the same cells in the same
-order.  A CUDA tensor goes to the kernel, a CPU tensor to the plain
-version; there is no fallback between the two.
+each job in turn, which visits the same cells in the same order (a warp
+per job, a run of matches or gap ops at a time, from slabs of diagonals
+staged in shared memory).  A CUDA tensor goes to the kernel, a CPU
+tensor to the plain version; there is no fallback between the two.
 
 Outputs: ``ops`` int32 [J, OPS], runs ``len<<4|op`` (0 M, 1 I, 2 D) in
 END->START order, -1 padded; ``info`` int32 [J, 8], columns n_ops,
@@ -29,6 +30,26 @@ OP_M, OP_I, OP_D = 0, 1, 2
 
 #: kernel launches since the last reset (plain-version calls not counted)
 launches = 0
+
+#: direction bytes per slab that K4 copies into shared memory for one
+#: walk (csrc/traceback.cu); two slabs per job, TB_JOBS jobs per block.
+#: 0 walks device memory directly (no slabs).
+SLAB_BYTES = 16384
+TB_JOBS = 4  # csrc/traceback.cu TB_JOBS
+
+
+def slab_depth(W: int) -> int:
+    """K4's diagonals per slab at band width W: about SLAB_BYTES, at
+    least 2 (a walk step lowers i + j by at most 2, so no slab is
+    skipped); 0 (walk device memory directly) when SLAB_BYTES is 0 or
+    two slabs per job of a block do not fit in shared memory.  The kernel
+    also walks device memory directly where W is no multiple of 16 (its
+    slab copies move 16 bytes at a time; the pipeline's bands are
+    multiples of 32)."""
+    if SLAB_BYTES <= 0:
+        return 0
+    D = max(2, SLAB_BYTES // W)
+    return D if TB_JOBS * 2 * D * W <= cuda_build.SMEM_LIMIT else 0
 
 
 def start_cells(best: torch.Tensor, qlen: torch.Tensor, tlen: torch.Tensor,
@@ -168,7 +189,8 @@ def traceback_device(dirs, best, qlen, tlen, mode, W: int, OPS: int,
         err = lib.traceback_walk(
             dirs.data_ptr(), best.data_ptr(), qlen.data_ptr(),
             tlen.data_ptr(), mode.data_ptr(), S, J, W, OPS, int(end_bonus),
-            ops.data_ptr(), info.data_ptr(), cuda_build.stream_handle(dev),
+            slab_depth(W), ops.data_ptr(), info.data_ptr(),
+            cuda_build.stream_handle(dev),
         )
     cuda_build.check(err, "traceback_walk")
     launches += 1

@@ -29,6 +29,11 @@ from mappy_rs_tpu_torch.utils.simulate import (edge_anchors, random_genome,
                                                tile_anchors,
                                                tile_chain_result)
 
+# one intra-op thread per test process: the suite runs several pytest
+# workers at once, and torch's default (a thread per core in each)
+# oversubscribes the cores many times over
+torch.set_num_threads(1)
+
 # map-ont chaining parameters at k=15
 PARAMS = ChainParams(max_dist_x=5000, max_dist_y=5000, bw=500, q_span=15,
                      chn_pen_gap=0.8 * 0.01 * 15, chn_pen_skip=0.0)
@@ -141,18 +146,26 @@ def test_aligner_on_card_matches_cpu(cuda):
 
 def _ext_jobs(rng, J, QMAX, TMAX):
     """Query = the target window with 8% substitutions, insertions and
-    deletions; a few N bases; the last job empty (padding)."""
+    deletions; a few N bases; every seventh job short (under 24 bases,
+    shorter than one of K4's slabs), every eleventh with a query a third
+    of its target (the end cell falls out of narrow bands); the last job
+    empty (padding)."""
     q = np.full((J, QMAX), 4, np.uint8)
     t = np.full((J, TMAX), 4, np.uint8)
     ql = np.zeros(J, np.int32)
     tl = np.zeros(J, np.int32)
     for ji in range(J - 1):
-        tseq = rng.integers(0, 4, rng.integers(QMAX // 2, TMAX + 1))
+        if ji % 7 == 3:
+            tseq = rng.integers(0, 4, rng.integers(1, 24))
+        else:
+            tseq = rng.integers(0, 4, rng.integers(QMAX // 2, TMAX + 1))
         keep = rng.random(len(tseq)) > 0.03
         qseq = np.where(rng.random(len(tseq)) < 0.03,
                         rng.integers(0, 5, len(tseq)), tseq)[keep]
         ins = rng.random(len(qseq)) < 0.02
         qseq = np.insert(qseq, np.nonzero(ins)[0], rng.integers(0, 4, ins.sum()))
+        if ji % 11 == 5:
+            qseq = qseq[: max(1, len(qseq) // 3)]
         qseq = qseq[:QMAX]
         q[ji, : len(qseq)] = qseq
         t[ji, : len(tseq)] = tseq
@@ -160,19 +173,44 @@ def _ext_jobs(rng, J, QMAX, TMAX):
     return q, t, ql, tl
 
 
+@pytest.fixture
+def kernel_design(request, monkeypatch):
+    """'shape': K3's warp or block kernel as W chooses it, K4's slabs at
+    the default depth; 'block': K3's block kernel at every W; 'thin': K4
+    with two diagonals per slab (a slab edge every step or two); 'direct':
+    K4 walking device memory without slabs."""
+    if request.param == "block":
+        monkeypatch.setattr(ek, "WARP_MAX_W", 0)
+    elif request.param == "thin":
+        monkeypatch.setattr(tb, "SLAB_BYTES", 1)
+    elif request.param == "direct":
+        monkeypatch.setattr(tb, "SLAB_BYTES", 0)
+    return request.param
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("W", [32, 128])
-def test_extension_kernels_match_plain(cuda, W):
+@pytest.mark.parametrize("kernel_design", ["shape", "block", "thin", "direct"],
+                         indirect=True)
+@pytest.mark.parametrize("W", [32, 64, 72, 96, 128, 160, 256, 288])
+def test_extension_kernels_match_plain(cuda, W, kernel_design):
+    """K3 and K4 equal their plain versions at every band width the
+    pipeline makes, on both sides of K3's warp/block switch (W = 256 /
+    288) and at W = 72 (no multiple of 32 or 16: K3's block kernel, K4
+    walking device memory without slabs), with J = 61 (no multiple of the jobs per block), a query and
+    target of different lengths, short, out-of-band and empty jobs, and
+    modes 0/1 mixed; K4 at OPS 128 and 4 (some walks overflow)."""
     rng = np.random.default_rng(W)
+    J = 61
     q, t, ql, tl = (torch.from_numpy(x).to(cuda)
-                    for x in _ext_jobs(rng, 64, 256, 320))
+                    for x in _ext_jobs(rng, J, 256, 320))
     n3, n4 = ek.launches, tb.launches
     got = ek.extend_dp_kernel(q, t, ql, tl, W, EXT)
     want = extend_dp(q, t, ql, tl, W, EXT)
     for k in ("dirs",) + BEST_COLS:
         assert torch.equal(got[k], want[k]), k
     assert (want["end_sc"] > 0).sum() > 0
-    mode = (torch.arange(64, device=cuda) % 2).to(torch.int32)
+    assert ek.shapes[(256, 320, W, J)] > 0
+    mode = (torch.arange(J, device=cuda) % 2).to(torch.int32)
     best = torch.stack([want[c] for c in BEST_COLS], 1)
     for ops_w in (128, 4):  # 4: some walks overflow the table
         o, i = tb.traceback_device(got["dirs"], got["best"], ql, tl, mode, W,
@@ -206,8 +244,10 @@ def test_device_extension_backend_on_card_matches_cpu(cuda, backend):
 @pytest.mark.cuda
 @pytest.mark.parametrize("W", [2048, 6144])
 def test_extension_kernel_wide_bands(cuda, W):
-    """Bands of several lanes per thread: W=2048 keeps the DP rows in
-    (opt-in, > 48 KB) shared memory, W=6144 in the global scratch."""
+    """Bands of several lanes per thread (K3's block kernel): W=2048
+    keeps the DP rows in (opt-in, > 48 KB) shared memory, W=6144 in the
+    global scratch; K4's slabs hold few diagonals there (two at W=6144,
+    98 KB of shared memory per block)."""
     rng = np.random.default_rng(W)
     q, t, ql, tl = (torch.from_numpy(x).to(cuda)
                     for x in _ext_jobs(rng, 4, 1024, 1024))
@@ -216,3 +256,10 @@ def test_extension_kernel_wide_bands(cuda, W):
     for k in ("dirs",) + BEST_COLS:
         assert torch.equal(got[k], want[k]), k
     assert (want["end_sc"] > 0).sum() == 3
+    assert 2 <= tb.slab_depth(W) <= 8
+    mode = torch.zeros(4, dtype=torch.int32, device=cuda)
+    o, i = tb.traceback_device(got["dirs"], got["best"], ql, tl, mode, W,
+                               128, 10)
+    best = torch.stack([want[c] for c in BEST_COLS], 1)
+    o2, i2 = tb.traceback_plain(want["dirs"], best, ql, tl, mode, W, 128, 10)
+    assert torch.equal(o, o2) and torch.equal(i, i2)

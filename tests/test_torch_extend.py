@@ -31,6 +31,11 @@ from mappy_rs_tpu_torch.ops.extend_kernel import extend_traceback_device
 from mappy_rs_tpu_torch.ops.traceback import traceback_plain
 from mappy_rs_tpu_torch.utils.simulate import random_genome, simulate
 
+# one intra-op thread per test process: the suite runs several pytest
+# workers at once, and torch's default (a thread per core in each)
+# oversubscribes the cores many times over
+torch.set_num_threads(1)
+
 # map-ont extension scoring
 P = dict(a=2, b=4, q=4, e=2, q2=24, e2=1, sc_ambi=1)
 PARAMS = ExtendParams(**P)
@@ -59,12 +64,50 @@ def _mutate(rng, codes, err):
     return np.asarray(out, np.uint8)
 
 
+def _edge_jobs(rng, J=8, QMAX=96, TMAX=224):
+    """The shapes the card kernels' warp designs are sensitive to, in one
+    batch with QMAX != TMAX: two jobs of a few bases (shorter than one of
+    K4's slabs), one whose end cell lies ~160 diagonals off the main one
+    (out of narrow bands), an extension-like and a global-like job, an
+    indel-dense job (more runs than a small ops table holds), and the
+    jobs with qlen == 0 and tlen == 0."""
+    q = np.full((J, QMAX), 4, np.uint8)
+    t = np.full((J, TMAX), 4, np.uint8)
+    ql = np.zeros(J, np.int32)
+    tl = np.zeros(J, np.int32)
+    rows = []
+    for n in (7, 1):
+        tseq = rng.integers(0, 4, n).astype(np.uint8)
+        rows.append((_mutate(rng, tseq, 0.1)[:QMAX] if n > 1 else tseq, tseq))
+    tseq = rng.integers(0, 4, 200).astype(np.uint8)
+    rows.append((_mutate(rng, tseq[:40], 0.05), tseq))
+    tseq = rng.integers(0, 4, TMAX).astype(np.uint8)
+    rows.append((_mutate(rng, tseq[:80], 0.08)[:QMAX], tseq))
+    tseq = rng.integers(0, 4, 90).astype(np.uint8)
+    rows.append((_mutate(rng, tseq, 0.08)[:QMAX], tseq))
+    tseq = rng.integers(0, 4, 88).astype(np.uint8)
+    rows.append((_mutate(rng, tseq, 0.4)[:QMAX], tseq))
+    for ji, (qq, tt) in enumerate(rows):
+        q[ji, : len(qq)] = qq
+        t[ji, : len(tt)] = tt
+        ql[ji], tl[ji] = len(qq), len(tt)
+    ql[J - 2] = 0
+    t[J - 2, :50] = rng.integers(0, 4, 50)
+    tl[J - 2] = 50
+    q[J - 1, :50] = rng.integers(0, 4, 50)
+    ql[J - 1] = 50
+    return q, t, ql, tl
+
+
 def _jobs(seed, J=8, QMAX=192, TMAX=256, err=0.08):
     """J padded jobs: a target window and a mutated query from it —
     from the whole window (global-like, small drift) for even jobs, from
     a prefix (extension-like, qlen != tlen) for odd ones — with a few N
-    bases, one job with qlen == 0 and one with tlen == 0."""
+    bases, one job with qlen == 0 and one with tlen == 0.  Seed 2 gives
+    the edge cases of ``_edge_jobs`` instead."""
     rng = np.random.default_rng(seed)
+    if seed == 2:
+        return _edge_jobs(rng)
     q = np.full((J, QMAX), 4, np.uint8)
     t = np.full((J, TMAX), 4, np.uint8)
     ql = np.zeros(J, np.int32)
@@ -99,8 +142,14 @@ def _port_dp(seed, W):
     return _CACHE[key]
 
 
-@pytest.mark.parametrize("W", [32, 64, 128])
-@pytest.mark.parametrize("seed", [0, 1])
+#: band widths: the flank band (128), the mid bands _mid_band makes
+#: (multiples of 32, most often 32; 96 and 160 are no powers of two)
+WIDTHS = [32, 64, 96, 128, 160]
+SEEDS = [0, 1, 2]
+
+
+@pytest.mark.parametrize("W", WIDTHS)
+@pytest.mark.parametrize("seed", SEEDS)
 def test_extend_dp_matches_jax(seed, W):
     (q, t, ql, tl), res = _port_dp(seed, W)
     want = jax_extend_dp(jnp.asarray(q), jnp.asarray(t), jnp.asarray(ql),
@@ -160,8 +209,8 @@ def _modes(kind, J):
 @pytest.mark.parametrize("kind", ["mid", "flank", "mixed"])
 def test_traceback_plain_matches_host_walk(kind):
     n_started = 0
-    for seed in (0, 1):
-        for W in (32, 64, 128):
+    for seed in SEEDS:
+        for W in WIDTHS:
             (_q, _t, ql, tl), res = _port_dp(seed, W)
             best = torch.stack([res[c] for c in BEST_COLS], 1)
             mode = _modes(kind, len(ql))
@@ -214,36 +263,42 @@ def test_extend_traceback_device_matches_pallas():
 def test_traceback_overflow_flag():
     """With OPS smaller than a walk's run count, overflow is set exactly
     for the walks whose in-band runs (the host walk's CIGAR less the
-    leading border gaps) outnumber OPS; n_ops still counts them all."""
+    leading border gaps) outnumber OPS; n_ops still counts them all.  On
+    the seeded jobs at W=64 and on the edge cases at W=160."""
     OPS = 4
-    (_q, _t, ql, tl), res = _port_dp(1, 64)
-    best = torch.stack([res[c] for c in BEST_COLS], 1)
-    mode = torch.zeros(len(ql), dtype=torch.int32)
-    ops, info = traceback_plain(res["dirs"], best, torch.from_numpy(ql),
-                                torch.from_numpy(tl), mode, 64, OPS, END_BONUS)
-    wide, _ = traceback_plain(res["dirs"], best, torch.from_numpy(ql),
-                              torch.from_numpy(tl), mode, 64, 1024, END_BONUS)
-    dirs = res["dirs"].numpy()
-    seen = set()
-    for ji in range(len(ql)):
-        want = _host_walk(dirs[:, ji, :], best[ji].numpy(), ql[ji], tl[ji], 64, 0)
-        if want is None:
-            continue
-        cig_w = [list(x) for x in want[0]]
-        fi, fj = int(info[ji, 1]), int(info[ji, 2])
-        for n, op in ((fj + 1, 2), (fi + 1, 1)):  # strip the border gaps
-            if n > 0:
-                assert cig_w[0][1] == op
-                cig_w[0][0] -= n
-                if cig_w[0][0] == 0:
-                    cig_w.pop(0)
-        runs = len(cig_w)
-        assert int(info[ji, 0]) == runs
-        assert int(info[ji, 5]) == int(runs > OPS)
-        k = min(runs, OPS)
-        assert (ops[ji, :k] == wide[ji, :k]).all() and (ops[ji, k:] == -1).all()
-        seen.add(runs > OPS)
-    assert seen == {True, False}
+    for seed, W in ((1, 64), (2, 160)):
+        (_q, _t, ql, tl), res = _port_dp(seed, W)
+        best = torch.stack([res[c] for c in BEST_COLS], 1)
+        mode = torch.zeros(len(ql), dtype=torch.int32)
+        ops, info = traceback_plain(res["dirs"], best, torch.from_numpy(ql),
+                                    torch.from_numpy(tl), mode, W, OPS,
+                                    END_BONUS)
+        wide, _ = traceback_plain(res["dirs"], best, torch.from_numpy(ql),
+                                  torch.from_numpy(tl), mode, W, 1024,
+                                  END_BONUS)
+        dirs = res["dirs"].numpy()
+        seen = set()
+        for ji in range(len(ql)):
+            want = _host_walk(dirs[:, ji, :], best[ji].numpy(), ql[ji],
+                              tl[ji], W, 0)
+            if want is None:
+                continue
+            cig_w = [list(x) for x in want[0]]
+            fi, fj = int(info[ji, 1]), int(info[ji, 2])
+            for n, op in ((fj + 1, 2), (fi + 1, 1)):  # strip the border gaps
+                if n > 0:
+                    assert cig_w[0][1] == op
+                    cig_w[0][0] -= n
+                    if cig_w[0][0] == 0:
+                        cig_w.pop(0)
+            runs = len(cig_w)
+            assert int(info[ji, 0]) == runs
+            assert int(info[ji, 5]) == int(runs > OPS)
+            k = min(runs, OPS)
+            assert (ops[ji, :k] == wide[ji, :k]).all()
+            assert (ops[ji, k:] == -1).all()
+            seen.add(runs > OPS)
+        assert seen == {True, False}, (seed, W)
 
 
 def _fields(m):

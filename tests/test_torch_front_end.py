@@ -37,6 +37,11 @@ from mappy_rs_tpu_torch.ops.sketch import sketch_compact
 from mappy_rs_tpu_torch.utils import u64
 from mappy_rs_tpu_torch.utils.simulate import random_genome, sweep_anchors
 
+# one intra-op thread per test process: the suite runs several pytest
+# workers at once, and torch's default (a thread per core in each)
+# oversubscribes the cores many times over
+torch.set_num_threads(1)
+
 K, W = 15, 10
 L = 1024
 M = max(64, L // (W // 2))

@@ -34,6 +34,11 @@ from mappy_rs_tpu_torch.utils.simulate import (edge_anchors, random_genome,
                                                tile_anchors,
                                                tile_chain_result)
 
+# one intra-op thread per test process: the suite runs several pytest
+# workers at once, and torch's default (a thread per core in each)
+# oversubscribes the cores many times over
+torch.set_num_threads(1)
+
 # map-ont chaining parameters at k=15
 CHAIN = dict(max_dist_x=5000, max_dist_y=5000, bw=500, q_span=15,
              chn_pen_gap=0.8 * 0.01 * 15, chn_pen_skip=0.0)

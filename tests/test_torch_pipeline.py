@@ -13,6 +13,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -29,6 +30,11 @@ from mappy_rs_tpu_torch.config import AlignerConfig
 from mappy_rs_tpu_torch.models.pipeline import front_end_bt
 from mappy_rs_tpu_torch.utils.seqcodes import encode
 from mappy_rs_tpu_torch.utils.simulate import random_genome, simulate
+
+# one intra-op thread per test process: the suite runs several pytest
+# workers at once, and torch's default (a thread per core in each)
+# oversubscribes the cores many times over
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -102,6 +108,27 @@ def test_aligner_map_matches_jax(data, aligners):
         assert got
 
 
+def _drain(al, payload, timeout: float = 300.0) -> dict:
+    """map_batch's results, consumed on a helper thread joined with a
+    timeout: a worker that never finishes fails the test, not the run."""
+    out, err = {}, []
+
+    def run():
+        try:
+            for ms, d in al.map_batch(payload):
+                out[d["i"]] = [_fields(m) for m in ms]
+        except BaseException as exc:  # noqa: BLE001 — re-raised below
+            err.append(exc)
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    th.join(timeout)
+    assert not th.is_alive(), f"map_batch did not finish within {timeout} s"
+    if err:
+        raise err[0]
+    return out
+
+
 def test_map_batch_matches_jax_and_places_reads(data, aligners):
     _genome, reads, starts = data
     tal, jal = aligners
@@ -110,8 +137,7 @@ def test_map_batch_matches_jax_and_places_reads(data, aligners):
     for name, al in (("port", tal), ("jax", jal)):
         al.enable_threading(2)
         try:
-            out[name] = {d["i"]: [_fields(m) for m in ms]
-                         for ms, d in al.map_batch(payload)}
+            out[name] = _drain(al, payload)
         finally:
             al.enable_threading(0)
     assert out["port"] == out["jax"]
