@@ -12,7 +12,10 @@ non-zero):
      anchor-overflow retry's A=4096, on anchors from the real front end
      and on synthetic anchors whose gaps sweep the whole gate range, on
      edge cases (equal candidates, best == span_i, an empty read, a
-     non-prefix valid mask), and at the long-read shapes B=8, A in
+     non-prefix valid mask), with the splice presets' parameters (K1's
+     splice branch, on its float penalty path) on anchors whose
+     reference gaps sweep 0-200,000 (utils/simulate.py splice_anchors)
+     at (256, 256) and (64, 4096), and at the long-read shapes B=8, A in
      {32,768, 131,072, 524,288}: a tile of 256 sweep anchors repeated
      (utils/simulate.py tile_anchors), whose expected result is the
      tile's plain result, repeated.
@@ -57,6 +60,21 @@ non-zero):
      some alignments into collinear parts), K1 and K2 launched, and 8
      of the reads map identically on the card and through the CPU
      plain versions.
+  9. presets at users' size, each with its own index of phase 4's
+     genome on the card: map-hifi (1,024 x 15 kb reads, 0.5% error),
+     sr (8,192 x 150 bp, 1%), map-pb (1,024 x 10 kb with PacBio-like
+     homopolymer run-length noise plus 2% substitutions; the index and
+     the reads homopolymer-compressed) and splice (2,048 transcripts of
+     3-8 exons joined across 80-5,000 bp introns written into a copy of
+     the genome, half GT..AG and half CT..AC, 1% error), each through
+     enable_threading(4) + map_batch.  Placed (within 100 bp; splice:
+     with an N op too): >= 99%, splice >= 90%.  K1 and K2 must launch
+     for every preset; on one real batch of each at its most common
+     launched shape K1 and K2 == plain (splice: K1's splice branch) and
+     are timed; 32 reads of each map identically on the card and
+     through the CPU plain versions; and on 256 map-hifi reads the
+     "device" extension backend (K3 + K4 at a=1, b=4, q=6, e=2, q2=26,
+     e2=1) gives the host backend's Mappings, cs and MD included.
 Prints per-kernel times (CUDA events around eager calls, the JSON
 line's `ms`; also as CUDA-graph replays, `graph_ms`, which leave out
 the host's launch cost) beside the plain versions' and each
@@ -317,12 +335,16 @@ def phase_kernels(al, reads, rng) -> dict:
     from mappy_rs_tpu_torch.ops import backtrack as bt
     from mappy_rs_tpu_torch.ops import chain_kernel as ck
     from mappy_rs_tpu_torch.ops.chain import chain_scores
-    from mappy_rs_tpu_torch.utils.simulate import (edge_anchors, sweep_anchors,
+    from mappy_rs_tpu_torch.utils.simulate import (edge_anchors,
+                                                   splice_anchors,
+                                                   sweep_anchors,
                                                    tile_anchors,
                                                    tile_chain_result)
 
     eng = al._engine
     params = eng._chain_params
+    splice_prm = params._replace(max_dist_x=200_000, max_dist_y=2000,
+                                   bw=200_000, is_splice=1)
     res = {"chain_dp": {"max_abs_err": 0}, "backtrack_chains": {"max_abs_err": 0}}
 
     def k1_check(anchors, window, label, prm=params):
@@ -376,6 +398,22 @@ def phase_kernels(al, reads, rng) -> dict:
     for window in (128, 512):
         f_e, p_e = k1_check(edge, window, "edge cases")
         k2_check(edge, f_e, p_e, "edge cases")
+    # K1's splice branch: the float penalty path at the splice presets'
+    # gates, reference gaps swept 0-200,000
+    for B, A in ((64, 4096), (256, 256)):
+        an = splice_anchors(rng, B, A, device="cuda")
+        f_s, p_s = k1_check(an, 128, "splice gap sweep", splice_prm)
+        k2_check(an, f_s, p_s, "splice gap sweep")
+    # timed at the main path's shape, beside the table path's row
+    k, pl = timed_pair(lambda: ck.chain_scores_kernel(an, splice_prm, 128),
+                       lambda: chain_scores(an, splice_prm, 128), 50, 1)
+    kg = graph_ms(lambda: ck.chain_scores_kernel(an, splice_prm, 128), 50)
+    res["chain_dp"]["splice_sweep"] = {
+        "ms": k, "graph_ms": kg, "plain_ms": pl, "shape": [B, A],
+        **k1_bound(an, 128)}
+    log(f"K1 time, splice gap sweep at B={B} A={A}: kernel {k:.4f} ms per "
+        f"eager call, {kg:.4f} ms on the device, plain {pl:.3f} ms; bound "
+        f"{res['chain_dp']['splice_sweep']['bound_ms']:.5f} ms")
 
     k2_check(real, f_real, p_real, "front-end anchors")
     k2_check(syn, f_syn, p_syn, "gate sweep")
@@ -1044,6 +1082,259 @@ def phase_long_reads(al, genome) -> dict:
             "shape": [B, L, A]}
 
 
+# --------------------------------------------------------------- phase 9
+#: phase 9: (preset, reads, read length, error, share to place); splice
+#: transcripts are 3-8 exons of 100-300 bp (utils/simulate.py)
+PRESET_RUNS = (
+    ("map-hifi", 1024, 15_000, 0.005, 0.99),
+    ("sr", 8192, 150, 0.01, 0.99),
+    ("map-pb", 1024, 10_000, 0.02, 0.99),
+    ("splice", 2048, 0, 0.01, 0.90),
+)
+N_CARD_VS_CPU = 32
+N_HIFI_DEVICE = 256
+
+
+def preset_data(preset: str, rng, genome: str, n: int, length: int,
+                err: float):
+    """(the genome to index, reads, origins) of one phase 9 preset."""
+    from mappy_rs_tpu_torch.utils.simulate import (simulate,
+                                                   simulate_hpc_noise,
+                                                   spliced_genes)
+
+    if preset == "splice":
+        return spliced_genes(rng, genome, n, err)
+    if preset == "map-pb":
+        return (genome, *simulate_hpc_noise(rng, genome, n, length, err))
+    return (genome, *simulate(rng, genome, n, length, err))
+
+
+def preset_batch(eng, reads, L: int) -> tuple:
+    """One real [B, L] batch of these reads at the shape the pipeline
+    launches for the L bucket, staged as _fe_submit_batch stages it
+    (HPC compression included) and uploaded; returns (inputs of
+    front_end_bt, its keyword arguments, the anchors of the port's
+    sketch and seed lookup on the card)."""
+    import torch
+
+    from mappy_rs_tpu_torch.ops.lookup import collect_anchors
+    from mappy_rs_tpu_torch.ops.sketch import sketch_compact
+    from mappy_rs_tpu_torch.utils.seqcodes import encode
+
+    B, M, A = eng.fe_shapes(L)
+    sel = [encode(r) for r in reads if eng._bucket_len(len(r)) == L][:B]
+    up = {n: torch.from_numpy(a).cuda()
+          for n, a in eng.stage_batch(sel, L, B).items()}
+    kw = eng._fe_kwargs(M, A, min(8, L // eng.SEG_LEN))
+    mins = sketch_compact(up["codes"], up.get("sk_lens", up["lens"]), kw["k"],
+                          kw["w"], M, force_inf=up.get("force_inf"),
+                          pos_map=up.get("pos_map"), spans=up.get("spans"))
+    an = collect_anchors(mins, up["lens"], eng.dev, kw["mid_occ"], A,
+                         kw["k"], kw["q_occ_frac"], kw["occ_dist"],
+                         kw["max_max_occ"])
+    return up, kw, an
+
+
+def preset_kernels(eng, an, kw, label: str) -> dict:
+    """K1 and K2 == their plain versions on these anchors, then timed
+    (eager, graph replay, plain) with their bounds."""
+    import torch
+
+    from mappy_rs_tpu_torch.ops import backtrack as bt
+    from mappy_rs_tpu_torch.ops import chain_kernel as ck
+    from mappy_rs_tpu_torch.ops.chain import chain_scores
+
+    prm, H = eng._chain_params, ck.window_of(kw["window"])
+    K, cuts, mc, ms = kw["bt_k"], kw["bt_cuts"], kw["min_cnt"], kw["min_sc"]
+    f, p = ck.chain_scores_kernel(an, prm, H)
+    fr, pr = chain_scores(an, prm, H)
+    o = bt.backtrack_chains(an, f, p, K, cuts, mc, ms)
+    r = bt.backtrack_chains_plain(an, f, p, K, cuts, mc, ms)
+    torch.cuda.synchronize()
+    e1, e2 = max(max_err(f, fr), max_err(p, pr)), max_err(o, r)
+    B, A = f.shape
+    log(f"{label}: K1 on real anchors B={B} A={A} window={H} "
+        f"is_splice={prm.is_splice} links={int((p >= 0).sum())} "
+        f"max_abs_err={e1}; K2 K={K} cuts={cuts} "
+        f"chains={int((o[:, :, 0] >= 0).sum())} max_abs_err={e2}")
+    if e1 or e2:
+        raise AssertionError(f"{label}: K1/K2 kernel != plain version")
+    out = {}
+    for name, kern, plain, bnd in (
+        ("chain_dp", lambda: ck.chain_scores_kernel(an, prm, H),
+         lambda: chain_scores(an, prm, H), lambda: k1_bound(an, H)),
+        ("backtrack_chains", lambda: bt.backtrack_chains(an, f, p, K, cuts, mc, ms),
+         lambda: bt.backtrack_chains_plain(an, f, p, K, cuts, mc, ms),
+         lambda: k2_bound(an, f, p, K, cuts, ms)),
+    ):
+        k, pl = timed_pair(kern, plain, 20, 1, warm_plain=False)
+        out[name] = {"ms": k, "graph_ms": graph_ms(kern, 20), "plain_ms": pl,
+                     "shape": [B, A], "max_abs_err": 0, **bnd()}
+        r = out[name]
+        log(f"{label}: {name} at B={B} A={A}: kernel {k:.4f} ms per eager "
+            f"call, {r['graph_ms']:.4f} ms on the device, plain {pl:.2f} ms, "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    return out
+
+
+def phase_presets(genome: str) -> dict:
+    import dataclasses
+
+    import torch
+
+    import mappy_rs_tpu_torch
+    from mappy_rs_tpu_torch.models.pipeline import (AlignmentEngine,
+                                                    front_end_bt)
+    from mappy_rs_tpu_torch.ops import backtrack as bt
+    from mappy_rs_tpu_torch.ops import chain_kernel as ck
+    from mappy_rs_tpu_torch.ops import extend_kernel as ek
+    from mappy_rs_tpu_torch.ops import traceback as tb
+
+    rng = np.random.default_rng(SEED + 9)
+    results = {}
+    for preset, n, length, err, need in PRESET_RUNS:
+        t_preset = time.perf_counter()
+        t0 = time.perf_counter()
+        g, reads, starts = preset_data(preset, rng, genome, n, length, err)
+        t_data = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        al = mappy_rs_tpu_torch.Aligner(seq=g, preset=preset)  # device="cuda"
+        eng = al._engine
+        dev = eng.dev
+        torch.cuda.synchronize()
+        t_index = time.perf_counter() - t0
+        if dev.hash_rows.device.type != "cuda":
+            raise AssertionError(f"{preset}: index tensors on {dev.hash_rows.device}")
+        log(f"{preset}: k={eng.index.k} w={eng.index.w} "
+            f"hpc={bool(eng.index.flag & 1)} splice={eng.is_splice}; "
+            f"{len(reads)} reads ({t_data:.1f} s to make); index built and "
+            f"uploaded in {t_index:.1f} s, {dev.nbytes() / 1e6:.1f} MB of "
+            f"tensors on the card, {dev.n_keys} keys, "
+            f"{'two' if dev.two_word else 'one'}-word table")
+        buckets = {}
+        for r in reads:
+            L = eng._bucket_len(len(r))
+            buckets[L] = buckets.get(L, 0) + 1
+        shapes = {}
+        for L in sorted(buckets):
+            B, M, A = eng.fe_shapes(L)
+            fits = eng._kernels_fit(A)
+            shapes[L] = {"reads": buckets[L], "B": B, "M": M, "A": A,
+                         "kernels_fit": fits}
+            if not fits:
+                raise AssertionError(f"{preset}: A={A} outside K1/K2")
+        log(f"{preset}: launched shapes by bucket L: {shapes}")
+
+        # K1 and K2 on one real batch of the most common bucket
+        L = max(buckets, key=lambda x: (buckets[x], x))
+        up, kw, an = preset_batch(eng, reads, L)
+        kern = preset_kernels(eng, an, kw, preset)
+        fe_in = dict(up)
+        codes_t, lens_t = fe_in.pop("codes"), fe_in.pop("lens")
+        fe_ms = cuda_ms(lambda: front_end_bt(codes_t, lens_t, dev, **fe_in,
+                                             **kw), 5)
+        log(f"{preset}: front end {fe_ms:.3f} ms per [{kw['M']}-minimizer, "
+            f"A={kw['A']}] batch of L={L} (CUDA events)")
+        del up, an, fe_in, codes_t, lens_t
+
+        # the preset's main path: enable_threading(4) + map_batch
+        payload = [{"i": i, "seq": s} for i, s in enumerate(reads)]
+        al.enable_threading(4)
+        list(al.map_batch(payload[:64]))  # warm the path
+        al.reset_metrics()
+        ck.launches = 0
+        bt.launches = 0
+        t0 = time.perf_counter()
+        placed = with_n = 0
+        for mappings, data in al.map_batch(payload):
+            prim = [m for m in mappings if m.is_primary]
+            if not prim:
+                continue
+            first = min(prim, key=lambda m: m.target_start)
+            ok = abs(first.target_start - starts[data["i"]]) < 100
+            if preset == "splice":
+                has_n = any(op == 3 for _, op in first.cigar)
+                with_n += has_n
+                ok = ok and has_n
+            placed += ok
+        wall = time.perf_counter() - t0
+        launches = {"chain_dp": ck.launches, "backtrack_chains": bt.launches}
+        al.enable_threading(0)
+        m = al.metrics
+        batches = m.get("fe_batches", 0)
+        fe_thread_ms = 1e3 * m.get("time_front_end_s", 0.0) / max(batches, 1)
+        hpc_calls = m.get("calls_hpc_stage", 0)
+        hpc_ms = 1e3 * m.get("time_hpc_stage_s", 0.0) / max(hpc_calls, 1)
+        log(f"{preset}: {len(reads)} reads in {wall:.3f} s = "
+            f"{len(reads) / wall:.1f} reads/s (4 threads); placed {placed} "
+            f"({100.0 * placed / len(reads):.2f}%"
+            + (f"; with an N op {with_n}" if preset == "splice" else "")
+            + f"); launches {launches}; {batches:.0f} front-end batches, "
+            f"{fe_thread_ms:.1f} thread-ms of front end per batch (submit + "
+            "collect)"
+            + (f", HPC staging {hpc_ms:.2f} ms per batch ({hpc_calls:.0f} "
+               "batches)" if hpc_calls else ""))
+        log(f"{preset} engine metrics: " + json.dumps(
+            {k: m[k] for k in sorted(m) if k.startswith(
+                ("time_", "calls_", "fe_", "anchor_"))}))
+        if placed < need * len(reads):
+            raise AssertionError(f"{preset}: only {placed}/{len(reads)} placed")
+        for name, c in launches.items():
+            if c <= 0:
+                raise AssertionError(f"{preset}: kernel {name} never launched")
+
+        # the card == the CPU plain versions, on 32 reads
+        cpu = AlignmentEngine(eng.index, eng.opt,
+                              dataclasses.replace(eng.cfg, device="cpu"))
+        t0 = time.perf_counter()
+        sel = reads[:N_CARD_VS_CPU]
+        got = [al._to_mappings(r) for r in eng.map_batch(sel, cs=True)]
+        want = [al._to_mappings(r) for r in cpu.map_batch(sel, cs=True)]
+        n_diff = sum(1 for a, b in zip(got, want) if a != b)
+        log(f"{preset}: {len(sel)} reads on the card vs the CPU plain "
+            f"versions: {n_diff} differ ({time.perf_counter() - t0:.1f} s)")
+        if n_diff:
+            raise AssertionError(f"{preset}: {n_diff} reads differ card vs CPU")
+        res = {"reads": len(reads), "wall_s": wall,
+               "reads_per_s": len(reads) / wall, "placed": placed,
+               "with_n": with_n, "launches": launches, "shapes": shapes,
+               "kernels": kern, "fe_ms": fe_ms, "fe_bucket": L,
+               "fe_thread_ms_per_batch": fe_thread_ms, "fe_batches": batches,
+               "hpc_stage_ms_per_batch": hpc_ms if hpc_calls else None,
+               "index_s": t_index, "index_bytes": dev.nbytes(),
+               "index_keys": dev.n_keys, "card_vs_cpu_diff": n_diff}
+
+        if preset == "map-hifi":
+            # K3 + K4 at the hifi scoring: "device" == "host", cs and MD
+            t0 = time.perf_counter()
+            sel = reads[:N_HIFI_DEVICE]
+            eng.cfg.extension_backend = "host"
+            want = [al._to_mappings(r)
+                    for r in eng.map_batch(sel, cs=True, md=True)]
+            ek.launches = 0
+            tb.launches = 0
+            eng.cfg.extension_backend = "device"
+            got = [al._to_mappings(r)
+                   for r in eng.map_batch(sel, cs=True, md=True)]
+            eng.cfg.extension_backend = "auto"
+            ext_l = {"extend_dp": ek.launches, "traceback": tb.launches}
+            n_diff = sum(1 for a, b in zip(got, want) if a != b)
+            log(f"map-hifi: {len(sel)} reads, 'device' vs 'host' with cs "
+                f"and MD: {n_diff} differ; launches {ext_l} "
+                f"({time.perf_counter() - t0:.1f} s)")
+            if n_diff:
+                raise AssertionError(f"map-hifi: {n_diff} reads differ "
+                                     "between 'device' and 'host'")
+            if min(ext_l.values()) <= 0:
+                raise AssertionError("map-hifi: K3/K4 never launched")
+            res.update(device_vs_host_diff=n_diff, device_launches=ext_l)
+        res["seconds"] = time.perf_counter() - t_preset
+        log(f"{preset}: phase 9 part done in {res['seconds']:.1f} s")
+        results[preset] = res
+        del al, eng, dev, cpu
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -1073,6 +1364,9 @@ def main() -> int:
     ext = phase_ext_slice(al, reads, starts)
     long_reads = phase_long_reads(al, genome)
     launches = dict(sl["launches"], **ext["device"]["launches"])
+    t0 = time.perf_counter()
+    presets = phase_presets(genome)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, src, repl in (
@@ -1104,6 +1398,8 @@ def main() -> int:
                                ("chain_dp", "backtrack_chains")},
               "ext_real_shapes": {n: kern[n].get("real") for n in
                                   ("extend_dp", "traceback")},
+              "splice_sweep": kern["chain_dp"].get("splice_sweep"),
+              "presets": presets,
               "seconds": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:

@@ -24,11 +24,21 @@ _CHUNK = 1 << 20
 
 
 def _sketch_contig_device(codes: np.ndarray, k: int, w: int,
-                          device="cpu") -> np.ndarray:
+                          device="cpu", is_hpc: bool = False) -> np.ndarray:
     """Sketch one contig with the torch sketch on `device`; returns
-    [n, 3] uint64 rows (key, pos_end, strand)."""
-    from ..ops.sketch import sketch
+    [n, 3] uint64 rows (key, pos_end, strand).  With is_hpc the contig
+    is homopolymer-compressed on the host first; emitted positions map
+    back to uncompressed run-end coordinates."""
+    from ..ops.sketch import compress_hpc, hpc_spans, sketch
 
+    pos_map = force = None
+    if is_hpc:
+        cc, cl, run_end, run_len = compress_hpc(
+            codes[None, :], np.asarray([len(codes)], np.int64))
+        n_c = int(cl[0])
+        pos_map = run_end[0][:n_c]
+        force = hpc_spans(run_len, k)[0][:n_c] >= 256
+        codes = cc[0][:n_c]
     L = len(codes)
     left, right = w + 2 * k, w + 1
     out_rows: List[np.ndarray] = []
@@ -43,15 +53,22 @@ def _sketch_contig_device(codes: np.ndarray, k: int, w: int,
         # the discarded right overlap (right > w-1)
         padded = torch.full((1, len(chunk)), 4, dtype=torch.uint8)
         padded[0] = torch.from_numpy(np.ascontiguousarray(chunk))
+        force_inf = None
+        if force is not None:
+            force_inf = torch.from_numpy(force[None, lo:hi]).to(device)
         res = sketch(padded.to(device),
-                     torch.tensor([len(chunk)], device=device), k, w)
+                     torch.tensor([len(chunk)], device=device), k, w,
+                     force_inf)
         pos_all = np.nonzero(res["minimizer"][0].cpu().numpy())[0]
         keep_lo, keep_hi = start - lo, keep_end - lo
         pos = pos_all[(pos_all >= keep_lo) & (pos_all < keep_hi)]
         key = res["key"][0].cpu().numpy()[pos].astype(np.uint64)
         strand = res["strand"][0].cpu().numpy()[pos].astype(np.uint64)
-        abs_pos = (pos - keep_lo + start).astype(np.uint64)
-        out_rows.append(np.stack([key, abs_pos, strand], axis=1))
+        abs_pos = pos - keep_lo + start
+        if pos_map is not None:  # compressed -> uncompressed position
+            abs_pos = pos_map[abs_pos]
+        out_rows.append(
+            np.stack([key, abs_pos.astype(np.uint64), strand], axis=1))
         start = keep_end
     if not out_rows:
         return np.empty((0, 3), np.uint64)
@@ -100,11 +117,7 @@ def build_index(
     def _sketch_one(codes: np.ndarray) -> np.ndarray:
         rows = _sketch_contig_native(codes, k, w, is_hpc)
         if rows is None:
-            if is_hpc:
-                from ..ops.sketch import HPC_TODO
-
-                raise NotImplementedError(HPC_TODO)
-            rows = _sketch_contig_device(codes, k, w, device)
+            rows = _sketch_contig_device(codes, k, w, device, is_hpc)
         return rows
 
     from .. import native as _native

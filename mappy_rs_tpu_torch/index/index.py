@@ -6,10 +6,11 @@ keeps them.  Device side (``DeviceIndex``): the flat lookup tables the
 front end gathers from, built by ``_build_device`` in numpy and
 uploaded once as torch tensors on the configured device.
 
-This slice uses the one-word hash-probe layout only (every key fits 31
-bits: k <= 15, the map-ont preset).  The two-word probe and the
-bucketed binary search of the JAX package are still to be ported;
-``_build_device`` raises ``NotImplementedError`` for them.
+Two hash-probe layouts, chosen by the widest key as in the JAX
+package: one word (int32 slots) for keys of at most 31 bits, two words
+(one int64 slot) for keys of 32 to 62 bits (k >= 16).  The JAX
+package's bucketed binary search serves only an index with no keys
+here: the one-word table answers that too (it finds nothing).
 
 Also covers:
   N4 mm_mapopt_update  -> ``update_map_options`` (mid_occ quantile)
@@ -32,13 +33,7 @@ from .mmi import RawIndexData, pack_seq, unpack_seq
 #: odd constant).  Device probes must use the same constant
 #: (ops/lookup.py probe_index).
 HASH_MIX = np.uint32(0x9E3779B1)
-
-#: the ROADMAP item that ports the other lookup layouts
-TWO_WORD_TODO = (
-    "only the one-word hash-probe index (keys <= 31 bits, k <= 15) is "
-    "ported; the two-word probe and binary-search layouts are ROADMAP "
-    "Queue 1 item 5 (remaining)"
-)
+HASH_MIX2 = np.uint32(0x85EBCA6B)  # two-word probe: mixes the upper word
 
 
 @dataclass
@@ -53,19 +48,27 @@ class DeviceIndex:
 
     Hash-probe layout: an ordered-linear-probing open-addressing table
     over the minimizer keys.  ``hash_rows`` holds the stored keys
-    reshaped [T/128 + 1, 128] (int32, -1 = empty; keys are <= 31 bits
-    so the sentinel never collides) so a query's whole probe window
-    (its slot plus <= 128 displacement) is ONE two-row gather;
-    ``hash_val`` maps the matched slot back to the sorted-key index
-    (n_keys = empty) for ``offcnt``."""
+    reshaped [T/128 + 1, 128] (-1 = empty: keys are non-negative, so
+    the sentinel never collides) so a query's whole probe window (its
+    slot plus <= 128 displacement) is ONE two-row gather; ``hash_val``
+    maps the matched slot back to the sorted-key index (n_keys = empty)
+    for ``offcnt``.  One word: int32 slots and slot = mix(key); two
+    words: int64 slots and slot = mix(lo32 ^ mix2(key >> 31)), the JAX
+    package's hash2 layout with its (fingerprint, upper) word pair kept
+    as the one key it encodes."""
 
     offcnt: torch.Tensor  # int32 [n_keys_pad, 2] (start into positions, count)
     pos_rp: torch.Tensor  # int32 [n_pos, 2] (rid, bitcast(pos_end<<1|strand))
-    hash_rows: torch.Tensor  # int32 [T/128 + 1, 128]
+    hash_rows: torch.Tensor  # int32 or int64 [T/128 + 1, 128]
     hash_val: torch.Tensor  # int32 [T + 128]
     n_keys: int
     hash_bits: int  # T = 2^hash_bits
     hash_shift: int  # slot = mix(key) >> hash_shift
+
+    @property
+    def two_word(self) -> bool:
+        """Whether the table holds keys wider than 31 bits (int64 slots)."""
+        return self.hash_rows.dtype == torch.int64
 
     def nbytes(self) -> int:
         return sum(
@@ -186,9 +189,10 @@ class MinimizerIndex:
 
     def _build_device(self, device: torch.device) -> DeviceIndex:
         """numpy build of the hash-probe tables, then one upload.  The
-        arrays equal the JAX package's DeviceIndex hash1 layout
-        (index/index.py _build_device) array for array, with hash_rows
-        as the int32 view of its uint32 words."""
+        arrays equal the JAX package's DeviceIndex hash1 / hash2
+        layouts (index/index.py _build_device) array for array, with
+        hash_rows as the int32 view of its uint32 words (one word) or
+        as the key its two words encode (two words)."""
         n = len(self.keys)
         if len(self.seq_lens) and int(self.seq_lens.max()) >= 2**31:
             raise OverflowError(
@@ -196,8 +200,10 @@ class MinimizerIndex:
                 "coordinates (and minimap2 itself) cap contigs at 2^31"
             )
         eff = int(self.keys[-1]).bit_length() if n else 1
-        if eff > 31:
-            raise NotImplementedError(TWO_WORD_TODO)
+        if eff > 62:
+            raise ValueError(f"minimizer keys of {eff} bits: at most 62 "
+                             "(k <= 31) fit the hash-probe tables")
+        two_word = eff > 31
         n_pad = max(((n + 127) // 128) * 128, 128)
         offcnt = np.zeros((n_pad, 2), np.int32)
         offcnt[:n, 0] = self.key_offsets[:n].astype(np.int32)
@@ -216,7 +222,12 @@ class MinimizerIndex:
         # order, the ordered-linear-probing layout is a prefix max, and
         # t grows until every displacement fits the 2-row window
         t = max(int(n / 0.75).bit_length(), 8)
-        mixed = self.keys.astype(np.uint32) * HASH_MIX
+        if two_word:
+            lo32 = (self.keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+            up = (self.keys >> np.uint64(31)).astype(np.uint32)
+            mixed = (lo32 ^ (up * HASH_MIX2)) * HASH_MIX
+        else:
+            mixed = self.keys.astype(np.uint32) * HASH_MIX
         i = np.arange(n, dtype=np.int64)
         order = slot = i
         while n:
@@ -231,8 +242,8 @@ class MinimizerIndex:
         rows = T // 128 + 1
         hval = np.full(rows * 128, n, np.int32)  # sentinel idx = n
         hval[slot] = order.astype(np.int32)
-        hkeys = np.full(rows * 128, -1, np.int32)
-        hkeys[slot] = self.keys[order].astype(np.int32)
+        hkeys = np.full(rows * 128, -1, np.int64 if two_word else np.int32)
+        hkeys[slot] = self.keys[order].astype(hkeys.dtype)
 
         def up(a: np.ndarray) -> torch.Tensor:
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)

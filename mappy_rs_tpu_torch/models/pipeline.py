@@ -15,11 +15,14 @@ software pipeline of depth ``cfg.pipeline_depth``: up to depth-1 front
 ends are enqueued on the card while the host finishes an earlier
 batch.  A front end issues no host sync between its upload and the
 download of its chain table; the download lands in pinned memory and a
-CUDA event marks it complete.
+CUDA event marks it complete.  An HPC index (map-pb, ava-pb) sketches
+homopolymer-compressed reads: the batch is compressed on the host and
+uploaded with the arrays that map it back.  Splice presets extend with
+the host intron-state DP (``_run_jobs_splice``) after the same front
+end, whose chain DP takes K1's splice branch.
 
-Not ported yet (raise NotImplementedError): the splice presets, the
-multi-device front ends and the packed-block sink of the process
-runtime.
+Not ported yet (raise NotImplementedError): the multi-device front ends
+and the packed-block sink of the process runtime.
 """
 from __future__ import annotations
 
@@ -30,7 +33,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import MM_F_RMQ, MM_F_SPLICE
+from ..config import MM_F_RMQ, MM_F_SPLICE, MM_F_SPLICE_FLANK
+from ..config import MM_F_SPLICE_FOR as _MM_F_SPLICE_FOR
+from ..config import MM_F_SPLICE_REV as _MM_F_SPLICE_REV
 from ..config import MM_F_SR as _MM_F_SR
 from ..config import AlignerConfig, MapOptions
 from ..index.index import DeviceIndex, MinimizerIndex, resolve_device
@@ -48,7 +53,7 @@ from ..ops.regions import (
     set_mapq,
     set_parent,
 )
-from ..ops.sketch import HPC_TODO, sketch_compact
+from ..ops.sketch import compress_hpc, hpc_spans, sketch_compact
 from ..utils.metrics import EngineMetrics
 from ..utils.seqcodes import encode
 
@@ -56,10 +61,6 @@ from ..utils.seqcodes import encode
 # (the extension engines' wire format); this is the canonical "empty"
 _EMPTY_OPS = np.empty(0, np.int32)
 
-SPLICE_TODO = (
-    "splice presets (MM_F_SPLICE) are not ported yet (ROADMAP Queue 1, "
-    "splice path)"
-)
 #: bytes of K3's direction tensor one job group may hold on the device
 #: (see _run_jobs)
 DIRS_BUDGET = 64 << 20
@@ -82,16 +83,25 @@ def front_end_bt(
     k: int, w: int, M: int, A: int, chain_params: ChainParams,
     window: int, mid_occ: int, q_occ_frac: float, occ_dist: int,
     max_max_occ: int, bt_k: int, bt_cuts: int, min_cnt: int, min_sc: int,
+    sk_lens: Optional[torch.Tensor] = None,
+    force_inf: Optional[torch.Tensor] = None,
+    pos_map: Optional[torch.Tensor] = None,
+    spans: Optional[torch.Tensor] = None,
 ):
     """The fused device front end: sketch -> seed lookup -> chain DP
     (kernel K1) -> chain backtrack (kernel K2), all on the device of
     `codes` with no host sync.
 
-    codes: uint8 [B, L] (padded with 4), lens: int32 [B].  Returns
-    (chains int32 [B, bt_k, 9 + 2*bt_cuts], aux int32 [2, B] =
-    (rep_len, n_raw)); n_raw > A marks reads whose seed hits overflowed
-    the anchor budget."""
-    mins = sketch_compact(codes, lens, k, w, M)
+    codes: uint8 [B, L] (padded with 4), lens: int32 [B].  For an HPC
+    index `codes` are homopolymer-compressed, with `sk_lens` their
+    lengths and `force_inf`, `pos_map`, `spans` [B, L] as
+    ops/sketch.py's sketch_compact takes them; `lens` stays the
+    uncompressed read lengths (the anchors' query coordinates need
+    them).  Returns (chains int32 [B, bt_k, 9 + 2*bt_cuts], aux int32
+    [2, B] = (rep_len, n_raw)); n_raw > A marks reads whose seed hits
+    overflowed the anchor budget."""
+    mins = sketch_compact(codes, lens if sk_lens is None else sk_lens, k, w,
+                          M, force_inf=force_inf, pos_map=pos_map, spans=spans)
     anchors = collect_anchors(
         mins, lens, dev, mid_occ, A, k, q_occ_frac, occ_dist, max_max_occ,
     )
@@ -133,8 +143,7 @@ class AlignmentEngine:
         self.opt = opt
         self.cfg = cfg or AlignerConfig()
         self.device = resolve_device(self.cfg.device)
-        if opt.flag & MM_F_SPLICE:
-            raise NotImplementedError(SPLICE_TODO)
+        self.is_splice = bool(opt.flag & MM_F_SPLICE)
         self._ext_params = ExtendParams(
             a=opt.a, b=opt.b, q=opt.q, e=opt.e, q2=opt.q2, e2=opt.e2,
             sc_ambi=opt.sc_ambi,
@@ -150,6 +159,7 @@ class AlignmentEngine:
             q_span=index.k,
             chn_pen_gap=opt.chain_gap_scale * 0.01 * index.k,
             chn_pen_skip=opt.chain_skip_scale * 0.01 * index.k,
+            is_splice=int(self.is_splice),
         )
 
     # ------------------------------------------------------------------
@@ -289,6 +299,25 @@ class AlignmentEngine:
             min_cnt=self.opt.min_cnt, min_sc=self.opt.min_chain_score,
         )
 
+    def stage_batch(self, codes_sel, L: int, B: int) -> Dict[str, np.ndarray]:
+        """The host arrays of one front-end batch (<= B reads of the L
+        bucket), named as front_end_bt takes them: codes [B, L] padded
+        with 4 and lens [B]; for an HPC index the codes compressed
+        (compress_hpc) plus sk_lens, force_inf, pos_map and spans."""
+        batch = np.full((B, L), 4, np.uint8)
+        lens = np.zeros(B, np.int32)
+        for bi, c in enumerate(codes_sel):
+            batch[bi, : len(c)] = c
+            lens[bi] = len(c)
+        host = {"codes": batch, "lens": lens}
+        if self.index.flag & 0x1:  # MM_I_HPC
+            with self.metrics.timer("hpc_stage"):
+                cc, cl, run_end, run_len = compress_hpc(batch, lens)
+                sp = hpc_spans(run_len, self.index.k)
+                host.update(codes=cc, sk_lens=cl, force_inf=sp >= 256,
+                            pos_map=run_end, spans=sp)
+        return host
+
     def _fe_submit_batch(self, codes_sel, L: int, B: int, M: int, A: int,
                          bt_cuts: int):
         """Stage + dispatch ONE fused front end (<= B reads of the L
@@ -296,13 +325,8 @@ class AlignmentEngine:
         On CUDA the upload comes from pinned memory, the chain table is
         copied into pinned memory asynchronously, and an event recorded
         after the copy tells _fe_collect when it has landed."""
-        if self.index.flag & 0x1:
-            raise NotImplementedError(HPC_TODO)
-        batch = np.full((B, L), 4, np.uint8)
-        lens = np.zeros(B, np.int32)
-        for bi, c in enumerate(codes_sel):
-            batch[bi, : len(c)] = c
-            lens[bi] = len(c)
+        host = self.stage_batch(codes_sel, L, B)
+        lens = host["lens"]
         kw = self._fe_kwargs(M, A, bt_cuts)
         dev = self.dev
         cuda = self.device.type == "cuda"
@@ -311,13 +335,13 @@ class AlignmentEngine:
         # chain DP cell updates this dispatch: B*A anchors x window
         self.metrics.add("chain_cells", float(B) * A * kw["window"])
         with self.metrics.timer("front_end"):
-            codes_h = torch.from_numpy(batch)
-            lens_h = torch.from_numpy(lens)
+            staged = {n: torch.from_numpy(a) for n, a in host.items()}
             if cuda:
-                codes_h, lens_h = codes_h.pin_memory(), lens_h.pin_memory()
-            codes_t = codes_h.to(self.device, non_blocking=True)
-            lens_t = lens_h.to(self.device, non_blocking=True)
-            chains, aux = front_end_bt(codes_t, lens_t, dev, **kw)
+                staged = {n: t.pin_memory() for n, t in staged.items()}
+            up = {n: t.to(self.device, non_blocking=True)
+                  for n, t in staged.items()}
+            chains, aux = front_end_bt(up.pop("codes"), up.pop("lens"), dev,
+                                       **up, **kw)
             done = None
             if cuda:
                 chains_h = torch.empty(chains.shape, dtype=chains.dtype,
@@ -330,7 +354,7 @@ class AlignmentEngine:
                 done.record(torch.cuda.current_stream(self.device))
                 chains, aux = chains_h, aux_h
 
-        handles = _FrontEndHandles(chains, aux, done, (codes_h, lens_h))
+        handles = _FrontEndHandles(chains, aux, done, tuple(staged.values()))
         return lens, handles
 
     def _fe_collect(self, handles: _FrontEndHandles):
@@ -421,6 +445,9 @@ class AlignmentEngine:
         banded DP, or kernel K3 on the device with the walk on the host
         ("device_dl") or on the device too (kernel K4, "device")."""
         if not jobs:
+            return
+        if self.is_splice:
+            self._run_jobs_splice(jobs)
             return
         from .. import native
 
@@ -808,7 +835,7 @@ class AlignmentEngine:
         extension path produces zdrop splits, so rescue runs there."""
         from .. import native
 
-        if not native.available():
+        if self.is_splice or not native.available():
             return
         ref = self.index.ref_codes
         offs = self.index.seq_offsets
@@ -987,7 +1014,8 @@ class AlignmentEngine:
         from .. import native
 
         if (
-            not self.cfg.post_chain_native
+            self.is_splice
+            or not self.cfg.post_chain_native
             or not native.available()
         ):
             return None
@@ -1056,6 +1084,11 @@ class AlignmentEngine:
         # flank ref overhang: the static band covers gaps up to ~W/2,
         # so a wider ref window than q + W/2 is unreachable anyway
         bw = min(self.opt.bw, self.flank_band // 2)
+        if self.is_splice:
+            # splice flanks run the UNBANDED intron-state DP, so the
+            # window is a cost knob, not a band: allow a terminal exon
+            # across an intron up to max_gap (2000 for splice presets)
+            bw = max(bw, self.opt.max_gap)
         for r in regions:
             q_al = codes if r.rev == 0 else _revcomp(codes)
             qs_a = r.qs if r.rev == 0 else qlen - r.qe
@@ -1144,6 +1177,83 @@ class AlignmentEngine:
         AlignerConfig.mid_band_floor/_slack)."""
         need = 32 * ((drift + self.cfg.mid_band_slack + 31) // 32)
         return max(self.cfg.mid_band_floor, need)
+
+    def _run_jobs_splice(self, jobs: List[_ExtJob]) -> None:
+        """Splice-mode extension: every job runs the intron-state DP
+        (C++ splice_align_batch; ops/splice.py when the lib is absent).
+        minimap2 aligns each region under both transcript senses when
+        MM_F_SPLICE_FOR|REV are set and keeps the higher-scoring round
+        (align.c's two-round splice loop); mirrored here per REGION so
+        all segments share one sense.  The winning sense is recorded as
+        trans_strand (+1/-1, 0 when no intron was found)."""
+        with self.metrics.timer("extend"):
+            senses = []
+            if self.opt.flag & _MM_F_SPLICE_FOR:
+                senses.append(1)
+            if self.opt.flag & _MM_F_SPLICE_REV:
+                senses.append(-1)
+            if not senses:
+                senses = [1]
+            flank_sig = bool(self.opt.flag & MM_F_SPLICE_FLANK)
+            by_region: Dict[int, List[_ExtJob]] = {}
+            for j in jobs:
+                by_region.setdefault(id(j.region), []).append(j)
+            for jl in by_region.values():
+                region = jl[0].region
+                # a second sense only matters if some segment can hold
+                # an intron (ref span materially exceeds query span)
+                may_intron = any(len(x.t) - len(x.q) >= 20 for x in jl)
+                use = senses if (may_intron and len(senses) > 1) else senses[:1]
+                best = None
+                for sense in use:
+                    results = [
+                        self._splice_one(x, sense, flank_sig) for x in jl
+                    ]
+                    tot = sum(r[1] for r in results)
+                    if best is None or tot > best[0]:
+                        best = (tot, sense, results)
+                _, sense, results = best
+                has_n = any(
+                    len(r[0]) and bool(((np.asarray(r[0]) & 0xF) == 3).any())
+                    for r in results
+                )
+                region.trans_strand = sense if has_n else 0
+                for x, (ops, sc, qc, tc) in zip(jl, results):
+                    if x.kind == "mid":
+                        x.region._mid_parts[x.seg] = (ops, sc)  # type: ignore[attr-defined]
+                    elif len(ops) or sc > 0:
+                        setattr(x.region, f"_{x.kind}", (ops, sc, qc, tc))
+                    else:
+                        self._store_empty(x)
+
+    def _splice_one(self, job: _ExtJob, sense: int, flank_sig: bool):
+        """One splice DP job -> (packed ops, score, q_used, t_used)."""
+        q, t = job.q, job.t
+        if len(q) == 0 or len(t) == 0:
+            return (_EMPTY_OPS, 0, 0, 0)
+        from .. import native
+
+        mode = 2 if job.kind == "mid" else 1
+        rev = job.kind == "left"  # left flanks walk outward (reversed)
+        o = self.opt
+        self.metrics.add("dp_cells", float(len(q)) * len(t))
+        if native.available():
+            res = native.splice_align_batch(
+                np.ascontiguousarray(q)[None, :],
+                np.ascontiguousarray(t)[None, :],
+                np.asarray([len(q)], np.int32),
+                np.asarray([len(t)], np.int32),
+                o.a, o.b, o.q, o.e, o.q2, o.noncan, o.sc_ambi,
+                o.end_bonus, mode, sense, flank_sig, rev,
+            )
+            if res is not None:
+                return res[0]
+        from ..ops.splice import splice_align
+
+        return splice_align(
+            np.asarray(q), np.asarray(t), o.a, o.b, o.q, o.e, o.q2,
+            o.noncan, o.sc_ambi, sense, flank_sig, mode, o.end_bonus, rev,
+        )
 
     def _run_jobs_host(self, jobs: List[_ExtJob]) -> None:
         """All extension jobs through the C++ banded DP: ONE native

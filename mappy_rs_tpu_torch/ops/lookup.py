@@ -19,7 +19,8 @@ Torch has no multi-key sort, so multi-key orders are built from stable
 single-key sorts, least significant key first.  Ties the JAX package's
 ``lax.sort`` leaves to the backend are broken by slot index here.
 
-Only the one-word hash-probe index layout is ported (index/index.py).
+Both hash-probe layouts of index/index.py are probed: one word (keys
+of at most 31 bits) and two words (keys of 32 to 62 bits, k >= 16).
 Everything runs as static-shape tensor ops: no host sync between the
 upload and the chain table's download.
 """
@@ -27,12 +28,12 @@ from __future__ import annotations
 
 import torch
 
-from ..index.index import DeviceIndex
+from ..index.index import HASH_MIX, HASH_MIX2, DeviceIndex
 
 #: mm_seed_select's MAX_MAX_HIGH_OCC — cap on rescued seeds per gap
 MAX_HIGH_OCC_PER_GAP = 128
 _BIG = 0x7FFFFFFF
-_MIX = 0x9E3779B1  # index.HASH_MIX
+_KEY_MAX = (1 << 63) - 1  # above every key and every invalid-slot key
 
 
 def _excl_cummax(x: torch.Tensor) -> torch.Tensor:
@@ -63,24 +64,35 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
 def probe_index(mins: dict, dev: DeviceIndex):
     """Match query minimizers against the hash-probe table.
 
-    slot h = mix(key) >> hash_shift (the build's HASH_MIX); a present
-    key lies in [h, h+128], fully inside rows h>>7 and h>>7 + 1, which
-    one gather fetches.  Returns (found [B, M] bool, oc [B, M, 2] int32
-    (offset, count)); oc rows are garbage where ~found."""
-    key = mins["key"]  # int64, INF (0xFFFFFFFF) on invalid slots
+    slot h = mix(key) >> hash_shift (the build's mix for the table's
+    layout); a present key lies in [h, h+128], fully inside rows h>>7
+    and h>>7 + 1, which one gather fetches.  Returns (found [B, M]
+    bool, oc [B, M, 2] int32 (offset, count)); oc rows are garbage where
+    ~found, and equal the JAX probe's there too."""
+    key = mins["key"]  # int64, the sketch's inf_key on invalid slots
     B, M = key.shape
     n_rows = dev.hash_rows.shape[0]
     n_pad = dev.offcnt.shape[0]
-    h = _mul32(key, _MIX) >> dev.hash_shift
+    if dev.two_word:
+        # the JAX package mixes (lo32, key >> 31) as uint32 words; for
+        # the wide sentinel 2^63-1 both are 0xFFFFFFFF, as for its
+        # (0xFFFFFFFF, 0xFFFFFFFF), so even invalid slots probe alike
+        up = (key >> 31) & 0xFFFFFFFF
+        mixed = _mul32((key & 0xFFFFFFFF) ^ _mul32(up, int(HASH_MIX2)),
+                       int(HASH_MIX))
+        q = key
+    else:
+        mixed = _mul32(key, int(HASH_MIX))
+        # the table stores uint32 words as int32: the sentinel key
+        # compares as -1, i.e. like the JAX probe it matches empty
+        # slots, whose hash_val is the n_keys sentinel
+        q = torch.where(key == 0xFFFFFFFF, -1, key).to(torch.int32)
+    h = mixed >> dev.hash_shift
     # invalid slots carry the sentinel key: clamp the row so the window
     # gather stays in bounds (they match nothing real)
     r = torch.clamp(h >> 7, max=n_rows - 2)
     win = dev.hash_rows[r[:, :, None] + torch.arange(2, device=key.device)]
-    # the table stores uint32 words as int32: the sentinel key compares
-    # as -1, i.e. like the JAX probe it matches empty slots, whose
-    # hash_val is the n_keys sentinel
-    q32 = torch.where(key == 0xFFFFFFFF, -1, key).to(torch.int32)
-    match = win.reshape(B, M, 256) == q32[:, :, None]
+    match = win.reshape(B, M, 256) == q[:, :, None]
     lane = match.to(torch.uint8).argmax(dim=-1)  # first True
     idx = dev.hash_val[(r << 7) + lane].to(torch.int64)
     idx_c = torch.clamp(idx, max=n_pad - 1)
@@ -182,7 +194,10 @@ def filter_counts(mins, qlens, found, cnt_raw, mid_occ, span,
         # scatter the run lengths back to slot order
         slot_valid = pos >= 0
         iota = torch.arange(M, device=pos.device).expand(B, M)
-        vkey = torch.where(slot_valid, mins["key"], 0xFFFFFFFF)
+        # invalid slots sort last, apart from every key (a 32-bit key
+        # can equal the narrow sentinel), as the JAX package's
+        # (0xFFFFFFFF, 0xFFFFFFFF) does
+        vkey = torch.where(slot_valid, mins["key"], _KEY_MAX)
         s_key, s_idx = torch.sort(vkey, dim=1, stable=True)
         first = torch.cat(
             [torch.ones_like(s_key[:, :1], dtype=torch.bool),

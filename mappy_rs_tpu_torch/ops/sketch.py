@@ -8,22 +8,31 @@ as five position-based mask clauses).  See that module's docstring for
 the derivation of the clauses; this file keeps its structure so the two
 read side by side.
 
-Hashes are int64 (utils/u64.py): k <= 15 only in this slice.  The
-homopolymer-compressed (HPC) sketch is not ported yet and raises.
-Every op here is a plain tensor op with static shapes: no host sync.
+Hashes are int64 (utils/u64.py) for every k <= 28.  The invalid-slot
+key is the JAX package's sentinel read as one integer: 0xFFFFFFFF
+while 2k <= 32 (the JAX package's one-word case, where a real key can
+equal it), else INF_WIDE, which stands above every 56-bit key as the
+JAX package's (0xFFFFFFFF, 0xFFFFFFFF) does and gives the same probe
+slot (ops/lookup.py).  Homopolymer-compressed (HPC) sketching runs the
+same sketch on compressed codes (``compress_hpc``, ``hpc_spans``, host
+numpy, as in the JAX package).  Every op on tensors here is a plain
+tensor op with static shapes: no host sync.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..utils import u64
 
 AMBIG = 4  # base code for non-ACGT
-INF = 0xFFFFFFFF  # invalid-slot key (the JAX package's uint32 sentinel)
-HPC_TODO = (
-    "homopolymer-compressed sketching (HPC index flag) is not ported yet "
-    "(ROADMAP Queue 1 item 3, remaining)"
-)
+INF = 0xFFFFFFFF  # invalid-slot key for 2k <= 32 (the JAX uint32 sentinel)
+INF_WIDE = (1 << 63) - 1  # invalid-slot key for 2k > 32
+
+
+def inf_key(k: int) -> int:
+    """The invalid-slot key of a k-mer sketch (see the module docstring)."""
+    return INF if 2 * k <= 32 else INF_WIDE
 
 
 def _shifted_back(x: torch.Tensor, d: int, fill) -> torch.Tensor:
@@ -42,21 +51,66 @@ def _shifted_fwd(x: torch.Tensor, d: int, fill) -> torch.Tensor:
     return torch.cat([x[..., d:], pad], dim=-1)
 
 
-def sketch(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int):
+def compress_hpc(codes: np.ndarray, lengths: np.ndarray):
+    """Homopolymer-compress a padded batch (host, vectorized numpy).
+
+    Returns (ccodes [B, L] padded with 4, clens [B], run_end [B, L]
+    uncompressed END position per compressed symbol, run_len [B, L]).
+    Runs of the SAME valid base collapse to one symbol positioned at
+    the run's last base; ambiguous bases stay one symbol each (they
+    occupy window slots in the scalar algorithm)."""
+    B, L = codes.shape
+    prev = np.full((B, L), 5, codes.dtype)
+    prev[:, 1:] = codes[:, :-1]
+    pos = np.arange(L)
+    in_len = pos[None, :] < lengths[:, None]
+    keep = ((codes != prev) | (codes >= 4) | (prev >= 4)) & in_len
+    ccodes = np.full((B, L), 4, np.uint8)
+    run_end = np.zeros((B, L), np.int32)
+    run_len = np.zeros((B, L), np.int32)
+    clens = keep.sum(axis=1).astype(np.int32)
+    for b in range(B):
+        ks = np.nonzero(keep[b])[0]
+        n = len(ks)
+        if n == 0:
+            continue
+        ccodes[b, :n] = codes[b, ks]
+        ends = np.empty(n, np.int64)
+        ends[:-1] = ks[1:] - 1
+        ends[-1] = int(lengths[b]) - 1
+        run_end[b, :n] = ends
+        run_len[b, :n] = ends - ks + 1
+    return ccodes, clens, run_end, run_len
+
+
+def hpc_spans(run_len: np.ndarray, k: int) -> np.ndarray:
+    """span[j] = sum of run lengths of the k runs ending at j (garbage
+    across N-breaks; the sketch's validity mask covers those)."""
+    cs = np.cumsum(run_len.astype(np.int64), axis=1)
+    shifted = np.zeros_like(cs)
+    shifted[:, k:] = cs[:, :-k]
+    return (cs - shifted).astype(np.int32)
+
+
+def sketch(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
+           force_inf: torch.Tensor | None = None):
     """Sketch a padded batch of reads.
 
     Args:
       codes: uint8/int [B, L] base codes 0..4; positions >= lengths[b]
         must be padded with AMBIG (4).
       lengths: int [B] true read lengths.
-      k, w: sketch parameters (k <= 15, w < 256).
+      k, w: sketch parameters (k <= 28, w < 256).
+      force_inf: optional bool [B, L]; True positions never emit (HPC
+        k-mers spanning 256 or more bases).
 
     Returns dict of [B, L] tensors, all aligned to k-mer END position i:
       minimizer: bool — position i emits a minimizer
-      key: int64 — 2k-bit hash of the canonical k-mer (INF if invalid)
+      key: int64 — 2k-bit hash of the canonical k-mer (inf_key(k) if
+        invalid)
       strand: uint8 — 0 forward / 1 reverse-canonical
     """
-    u64.check_k(k)
+    inf = inf_key(k)
     dev = codes.device
     codes = codes.to(torch.int64)
     B, L = codes.shape
@@ -82,7 +136,8 @@ def sketch(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int):
     z = kr <= kf  # kf==kr -> z True (even-k only)
     h = u64.hash64(torch.where(z, kr, kf), k)
 
-    x = torch.where(kmer_ok, h, INF)
+    emit_ok = kmer_ok if force_inf is None else kmer_ok & ~force_inf
+    x = torch.where(emit_ok, h, inf)
 
     # run(t): consecutive valid BASES ending at t
     last_bad = torch.cummax(torch.where(valid_base, -1, pos), dim=1).values
@@ -91,16 +146,16 @@ def sketch(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int):
     # m(t), M(t): minimum value and LATEST-tie argmin over [t-w+1, t]
     m = x
     for d in range(1, w):
-        m = torch.minimum(m, _shifted_back(x, d, INF))
+        m = torch.minimum(m, _shifted_back(x, d, inf))
     # latest tie = smallest lookback d with x[t-d] == m(t)
     M = torch.full((B, L), -1, dtype=torch.int64, device=dev)
     found = torch.zeros((B, L), dtype=torch.bool, device=dev)
     for d in range(w):
-        hit = (~found) & (_shifted_back(x, d, INF) == m)
+        hit = (~found) & (_shifted_back(x, d, inf) == m)
         M = torch.where(hit, pos - d, M)
         found = found | hit
 
-    m1 = _shifted_back(m, 1, INF)  # m(t-1)
+    m1 = _shifted_back(m, 1, inf)  # m(t-1)
     M1 = _shifted_back(M, 1, -2)  # M(t-1)
 
     condA = run == (w + k - 1)
@@ -114,8 +169,8 @@ def sketch(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int):
         if d < w:
             tA = _shifted_fwd(condA, d, False)
             tCt = _shifted_fwd(condCt, d, False)
-            m1_d = _shifted_fwd(m1, d, INF)
-            m_d = _shifted_fwd(m, d, INF)
+            m1_d = _shifted_fwd(m1, d, inf)
+            m_d = _shifted_fwd(m, d, inf)
             M_d = _shifted_fwd(M, d, -2)
             emitted = emitted | (tA & (x == m1_d) & (M1_d != pos))  # A
             emitted = emitted | (tCt & (x == m_d) & (M_d != pos))  # Ct
@@ -127,21 +182,27 @@ def sketch(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int):
     M_end = torch.where(at_end, M, -1).amax(dim=-1, keepdim=True)
     emitted = emitted | (pos == M_end)
 
-    emitted = emitted & kmer_ok & (pos < lengths[:, None])
+    emitted = emitted & emit_ok & (pos < lengths[:, None])
     return {"minimizer": emitted, "key": x, "strand": z.to(torch.uint8)}
 
 
 def sketch_compact(codes: torch.Tensor, lengths: torch.Tensor, k: int,
-                   w: int, max_minimizers: int):
+                   w: int, max_minimizers: int,
+                   force_inf: torch.Tensor | None = None,
+                   pos_map: torch.Tensor | None = None,
+                   spans: torch.Tensor | None = None):
     """Sketch + on-device compaction into fixed-width [B, M] slot tensors.
 
     Returns dict n [B] and key (int64) / pos / strand / span [B, M];
-    slots >= n are invalid (key = INF, pos = -1, strand = span = 0).
-    Emitted minimizers past M are dropped: they scatter into an extra
-    column M that is cut off (torch raises on out-of-range indices
-    where jax's ``mode="drop"`` drops them).
+    slots >= n are invalid (key = inf_key(k), pos = -1, strand = span =
+    0).  Emitted minimizers past M are dropped: they scatter into an
+    extra column M that is cut off (torch raises on out-of-range
+    indices where jax's ``mode="drop"`` drops them).  For HPC sketching
+    the caller passes compressed codes and lengths plus ``pos_map``
+    (uncompressed END position per symbol), ``spans`` and ``force_inf``
+    (span >= 256).
     """
-    s = sketch(codes, lengths, k, w)
+    s = sketch(codes, lengths, k, w, force_inf)
     B, L = codes.shape
     M = max_minimizers
     dev = codes.device
@@ -154,13 +215,20 @@ def sketch_compact(codes: torch.Tensor, lengths: torch.Tensor, k: int,
         out = torch.full((B, M + 1), fill, dtype=src.dtype, device=dev)
         return out.scatter_(1, slot, src)[:, :M]
 
-    pos = torch.arange(L, dtype=torch.int64, device=dev).expand(B, L)
+    if pos_map is None:
+        pos = torch.arange(L, dtype=torch.int64, device=dev).expand(B, L)
+    else:
+        pos = pos_map.to(torch.int64)
     pos_o = scatter(pos, -1)
     strand = scatter(s["strand"].to(torch.int64), 0)
+    if spans is None:
+        span = torch.where(pos_o >= 0, k, 0)
+    else:
+        span = scatter(spans.to(torch.int64), 0)
     return {
         "n": n,
-        "key": scatter(s["key"], INF),
+        "key": scatter(s["key"], inf_key(k)),
         "pos": pos_o.to(torch.int32),
         "strand": strand.to(torch.uint8),
-        "span": torch.where(pos_o >= 0, k, 0).to(torch.int32),
+        "span": span.to(torch.int32),
     }

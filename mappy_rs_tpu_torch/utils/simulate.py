@@ -57,6 +57,94 @@ def simulate(rng, genome: str, n: int, length: int, err: float):
     return reads, [int(s) for s in starts]
 
 
+def simulate_hpc_noise(rng, genome: str, n: int, length: int, sub: float):
+    """PacBio-like reads: each homopolymer run of two or more bases in
+    the template becomes, with probability 0.35, one base shorter, as
+    long or one base longer (the run-length noise HPC sketching
+    ignores), then substitutions at `sub`; half the reads are
+    reverse-complemented.  Returns (reads, template starts)."""
+    g = np.frombuffer(genome.encode(), np.uint8)
+    starts = rng.integers(0, len(g) - length, n)
+    code = np.zeros(256, np.uint8)
+    code[ord("C")], code[ord("G")], code[ord("T")] = 1, 2, 3
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    comp = np.zeros(256, np.uint8)
+    for a, b in zip(b"ACGT", b"TGCA"):
+        comp[a] = b
+    reads = []
+    for s in starts:
+        t = g[s: s + length]
+        first = np.concatenate([[0], np.flatnonzero(t[1:] != t[:-1]) + 1])
+        runs = np.diff(np.concatenate([first, [len(t)]]))
+        noisy = (rng.random(len(runs)) < 0.35) & (runs > 1)
+        runs = runs + np.where(noisy, rng.integers(-1, 2, len(runs)), 0)
+        r = np.repeat(t[first], runs)
+        hit = rng.random(len(r)) < sub
+        r[hit] = acgt[(code[r[hit]] + rng.integers(1, 4, int(hit.sum()))) & 3]
+        if rng.random() < 0.5:
+            r = comp[r[::-1]]
+        reads.append(r.tobytes().decode())
+    return reads, [int(s) for s in starts]
+
+
+def spliced_genes(rng, genome: str, n: int, err: float,
+                  exons=(3, 8), exon_len=(100, 300), intron_len=(80, 5000)):
+    """Spliced transcripts: n genes of 3-8 exons (100-300 bp) whose
+    introns (log-uniform 80-5,000 bp) are written into a copy of
+    `genome`, half with GT..AG ends and half in the reverse sense
+    (CT..AC), placed one after another 1-3 kb apart from a random
+    start.  Each transcript is its exons joined, with `err` errors as
+    ``simulate`` makes them (60/20/20 sub/ins/del), and half are
+    reverse-complemented.  Returns (the genome with the introns, the
+    transcripts, their first exons' starts)."""
+    g = np.frombuffer(genome.encode(), np.uint8).copy()
+    genes = []
+    for _ in range(n):
+        ne = int(rng.integers(exons[0], exons[1] + 1))
+        el = rng.integers(exon_len[0], exon_len[1] + 1, ne)
+        il = np.exp(rng.uniform(np.log(intron_len[0]), np.log(intron_len[1]),
+                                ne - 1)).astype(np.int64)
+        genes.append((el, il))
+    total = sum(int(el.sum() + il.sum()) + 3000 for el, il in genes)
+    if total > len(g):
+        raise ValueError(f"{n} genes need {total} bp, the genome has {len(g)}")
+    pos = int(rng.integers(0, len(g) - total + 1))
+    comp = np.zeros(256, np.uint8)
+    for a, b in zip(b"ACGT", b"TGCA"):
+        comp[a] = b
+    reads, starts = [], []
+    for gi, (el, il) in enumerate(genes):
+        pos += int(rng.integers(1000, 3001))
+        sense = b"GT", b"AG"
+        if gi % 2:
+            sense = b"CT", b"AC"
+        parts = []
+        starts.append(pos)
+        for ei, e in enumerate(el):
+            parts.append(g[pos: pos + int(e)])
+            pos += int(e)
+            if ei < len(il):
+                L = int(il[ei])
+                g[pos: pos + 2] = np.frombuffer(sense[0], np.uint8)
+                g[pos + L - 2: pos + L] = np.frombuffer(sense[1], np.uint8)
+                pos += L
+        t = np.concatenate(parts)
+        r = rng.random(len(t))
+        sub = r < err * 0.6
+        ins = (r >= err * 0.6) & (r < err * 0.8)
+        keep = ~((r >= err * 0.8) & (r < err))
+        acgt = np.frombuffer(b"ACGT", np.uint8)
+        t = np.where(sub, acgt[rng.integers(0, 4, len(t))], t)
+        ins_at = np.nonzero(ins & keep)[0]
+        t = np.insert(t, ins_at, acgt[rng.integers(0, 4, len(ins_at))])
+        keep = np.insert(keep, ins_at, True)
+        t = t[keep]
+        if rng.random() < 0.5:
+            t = comp[t[::-1]]
+        reads.append(t.tobytes().decode())
+    return g.tobytes().decode(), reads, starts
+
+
 def sweep_anchors(rng, B: int, A: int, bw: int, span: int = 15,
                   device="cpu") -> dict:
     """Sorted synthetic chaining anchors [B, A] whose pair gaps sweep
@@ -78,6 +166,44 @@ def sweep_anchors(rng, B: int, A: int, bw: int, span: int = 15,
     jump = np.where(rng.random((B, A)) < 0.05,
                     rng.integers(-(bw + 2), bw + 3, (B, A)), 0)
     qpos = rpos + np.cumsum(jump, axis=1) + rng.integers(-3, 4, (B, A))
+    spans = np.where(rng.random((B, A)) < 0.9, span,
+                     rng.integers(10, 21, (B, A)))
+    for b in range(B):
+        o = np.lexsort((qpos[b], rpos[b], rid[b], rev[b]))
+        rev[b], rid[b], rpos[b], qpos[b] = rev[b][o], rid[b][o], rpos[b][o], qpos[b][o]
+    out = {n: torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(device)
+           for n, v in (("rev", rev), ("rid", rid), ("rpos", rpos),
+                        ("qpos", qpos), ("span", spans))}
+    out["valid"] = torch.from_numpy(valid).to(device)
+    return out
+
+
+def splice_anchors(rng, B: int, A: int, span: int = 15,
+                   max_intron: int = 200_000, device="cpu") -> dict:
+    """Sorted synthetic anchors [B, A] of spliced transcripts, for K1's
+    splice branch: exon runs along a diagonal (query steps of 1-40,
+    reference steps within 3 of them) broken by introns whose reference
+    gaps are drawn log-uniformly from 1..max_intron (so 80-5,000 bp
+    introns and gaps up to the splice presets' bw = 200,000 all occur,
+    some just past it), now and then a query gap instead (dr < dq, the
+    branch's other side; some past max_gap = 2,000), two strands, two
+    contigs, spans mostly `span`, and a ragged invalid tail.  Returns
+    int32 rev/rid/rpos/qpos/span and bool valid."""
+    import torch
+
+    n_valid = rng.integers(A // 2, A + 1, B)
+    n_valid[0] = A
+    valid = np.arange(A)[None, :] < n_valid[:, None]
+    rev = rng.integers(0, 2, (B, A))
+    rid = rng.integers(0, 2, (B, A))
+    qstep = rng.integers(1, 41, (B, A))
+    rstep = np.maximum(qstep + rng.integers(-3, 4, (B, A)), 0)
+    u = rng.random((B, A))
+    intron = np.exp(rng.uniform(0, np.log(max_intron * 1.01), (B, A)))
+    rstep = np.where(u < 0.08, rstep + intron.astype(np.int64), rstep)
+    qstep = np.where(u > 0.98, qstep + rng.integers(0, 3000, (B, A)), qstep)
+    rpos = np.cumsum(rstep, axis=1)
+    qpos = np.cumsum(qstep, axis=1)
     spans = np.where(rng.random((B, A)) < 0.9, span,
                      rng.integers(10, 21, (B, A)))
     for b in range(B):

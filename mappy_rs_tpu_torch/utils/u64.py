@@ -2,41 +2,32 @@
 
 The JAX package carries hashes as (hi, lo) uint32 pairs because a TPU
 has no fast 64-bit integer path.  Torch has native int64, so keys are
-plain int64 here.  This slice supports k <= 15: keys are then at most
-2k <= 30 bits, every intermediate of ``hash64`` (the widest is
-key << 31, < 2^61) fits int64 without overflow, and the value is masked
-to 2k bits before each shift.  Larger k raises: those keys need the
-unsigned 64-bit arithmetic the two-word index layout uses, which is
-not ported yet.
+plain int64 here, for every k the presets use (k <= 28: keys of at most
+2k <= 56 bits).
+
+Unsigned 64-bit arithmetic on int64: addition and left shifts wrap in
+two's complement (``key << 31`` of a 56-bit key leaves int64's range),
+so their low 64 bits are those of the unsigned result, and the mask to
+2k bits after each such step keeps the value in [0, 2^(2k)).  Every
+right shift is applied to such a masked, non-negative value, where
+int64's arithmetic shift equals the logical one.
 """
 from __future__ import annotations
 
 import torch
-
-MAX_K = 15
 
 
 def mask_bits(bits: int) -> int:
     return (1 << bits) - 1
 
 
-def check_k(k: int) -> None:
-    if k > MAX_K:
-        raise NotImplementedError(
-            f"k={k}: keys wider than 30 bits (k > {MAX_K}) need the two-word "
-            "hash path, which is not ported yet (ROADMAP Queue 1 item 2)"
-        )
-
-
 def hash64(key: torch.Tensor, k: int) -> torch.Tensor:
     """Invertible integer mix hash over the low 2k bits (minimap2's
     hash64, the index/sketch_host.py oracle), for int64 keys < 4^k.
 
-    Bit-exact with hash64 in unsigned 64-bit arithmetic: the masked
-    steps keep the value below 2^(2k), the unmasked xor/shift steps
-    cannot widen it, and int64 two's-complement wraparound of ~key is
-    erased by the mask that follows."""
-    check_k(k)
+    Bit-exact with hash64 in unsigned 64-bit arithmetic (see the module
+    docstring): ~key is negative, and the wrapped sum is masked before
+    the next shift."""
     m = mask_bits(2 * k)
     key = (~key + (key << 21)) & m
     key = key ^ (key >> 24)

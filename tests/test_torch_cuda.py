@@ -23,9 +23,13 @@ from mappy_rs_tpu_torch.ops import extend_kernel as ek
 from mappy_rs_tpu_torch.ops import traceback as tb
 from mappy_rs_tpu_torch.ops.chain import ChainParams, chain_scores
 from mappy_rs_tpu_torch.ops.extend import BEST_COLS, ExtendParams, extend_dp
+from mappy_rs_tpu_torch.ops.lookup import probe_index
+from mappy_rs_tpu_torch.ops.sketch import compress_hpc, hpc_spans, sketch_compact
+from mappy_rs_tpu_torch.utils import u64
 from mappy_rs_tpu_torch.utils.seqcodes import encode
 from mappy_rs_tpu_torch.utils.simulate import (edge_anchors, random_genome,
-                                               simulate, sweep_anchors,
+                                               simulate, splice_anchors,
+                                               spliced_genes, sweep_anchors,
                                                tile_anchors,
                                                tile_chain_result)
 
@@ -67,6 +71,114 @@ def test_kernels_match_plain(cuda, A, window, skip):
     r = bt.backtrack_chains_plain(anchors, f, p, 8, 2, 3, 40)
     assert torch.equal(o, r)
     assert (ck.launches, bt.launches) == (n1 + 1, n2 + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A,window", [(512, 128), (4096, 128), (1024, 512)])
+def test_chain_kernel_splice_branch_matches_plain(cuda, A, window):
+    """K1's splice branch (the float penalty path: the dd table is off
+    under is_splice) at the splice presets' gates, on anchors whose
+    reference gaps sweep 0-200,000 (intron-sized gaps included)."""
+    params = ChainParams(max_dist_x=200_000, max_dist_y=2000, bw=200_000,
+                         q_span=15, chn_pen_gap=0.8 * 0.01 * 15,
+                         chn_pen_skip=0.0, is_splice=1)
+    anchors = splice_anchors(np.random.default_rng(A + window), 32, A,
+                             device=cuda)
+    f, p = ck.chain_scores_kernel(anchors, params, window)
+    fr, pr = chain_scores(anchors, params, ck.window_of(window))
+    assert torch.equal(f, fr) and torch.equal(p, pr)
+    b, i = torch.nonzero(p >= 0, as_tuple=True)
+    gap = anchors["rpos"][b, i] - anchors["rpos"][b, p[b, i]]
+    assert (gap > 50_000).sum() > 0 and (gap > 80).sum() > 0
+    o = bt.backtrack_chains(anchors, f, p, 8, 2, 3, 40)
+    assert torch.equal(o, bt.backtrack_chains_plain(anchors, f, p, 8, 2, 3, 40))
+
+
+@pytest.mark.cuda
+def test_hash64_wide_k_on_card(cuda):
+    """int64 hash64 for k 16..28 (keys of 32..56 bits) wraps on the card
+    as on the CPU: its shifts leave int64's range before the mask."""
+    for k in range(16, 29):
+        keys = np.random.default_rng(k).integers(0, 1 << (2 * k), 1 << 16,
+                                                 dtype=np.int64)
+        keys[:2] = [(1 << (2 * k)) - 1, (1 << 55) + 12345 if k == 28 else 0]
+        want = u64.hash64(torch.from_numpy(keys), k)
+        got = u64.hash64(torch.from_numpy(keys).to(cuda), k)
+        assert torch.equal(got.cpu(), want), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["map-hifi", "sr"])
+def test_two_word_probe_on_card(cuda, preset):
+    """The two-word table's probe (k=19 / 21) on the card == on the CPU,
+    sentinel slots included."""
+    rng = np.random.default_rng(5)
+    genome = random_genome(rng, 300_000)
+    reads, _ = simulate(rng, genome, 32, 700, 0.01)
+    al = mappy_rs_tpu_torch.Aligner(seq=genome, preset=preset, device="cpu")
+    idx = al._engine.index
+    assert idx.device_index("cpu").two_word
+    codes = np.full((32, 768), 4, np.uint8)
+    lens = np.zeros(32, np.int32)
+    for i, r in enumerate(reads):
+        codes[i, : len(r)] = encode(r)
+        lens[i] = len(r)
+    mins = sketch_compact(torch.from_numpy(codes), torch.from_numpy(lens),
+                          idx.k, idx.w, 256)
+    want = probe_index(mins, idx.device_index("cpu"))
+    got = probe_index({k: v.to(cuda) for k, v in mins.items()},
+                      idx.device_index(cuda))
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert want[0].sum() > 0
+
+
+@pytest.mark.cuda
+def test_hpc_sketch_on_card(cuda):
+    """The HPC sketch_compact (k=19, w=10) on the card == on the CPU."""
+    rng = np.random.default_rng(8)
+    B, L = 64, 1024
+    runs = rng.integers(1, 6, (B, L))
+    codes = np.stack([np.repeat(rng.integers(0, 4, L), r)[:L] for r in runs]
+                     ).astype(np.uint8)
+    lens = rng.integers(16, L + 1, B).astype(np.int32)
+    for b in range(B):
+        codes[b, lens[b]:] = 4
+    codes[0, 200:500] = 3  # spans >= 256: force_inf
+    cc, cl, run_end, run_len = compress_hpc(codes, lens)
+    sp = hpc_spans(run_len, 19)
+    args = [torch.from_numpy(x) for x in (cc, cl, sp >= 256, run_end, sp)]
+
+    def run(dev):
+        c, n, f, pm, s = (a.to(dev) for a in args)
+        return sketch_compact(c, n, 19, 10, 256, force_inf=f, pos_map=pm,
+                              spans=s)
+
+    want, got = run("cpu"), run(cuda)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+    assert want["n"].sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["map-hifi", "sr", "map-pb", "splice"])
+def test_presets_on_card_match_cpu(cuda, preset):
+    """Each new preset maps on the card as through the CPU plain
+    versions, launching K1 and K2."""
+    rng = np.random.default_rng(9)
+    genome = random_genome(rng, 1_000_000)
+    if preset == "splice":
+        genome, reads, _ = spliced_genes(rng, genome, 8, 0.01)
+    else:
+        reads, _ = simulate(rng, genome, 8, 150 if preset == "sr" else 2000,
+                            0.01)
+    gpu = mappy_rs_tpu_torch.Aligner(seq=genome, preset=preset, device=cuda)
+    cpu = mappy_rs_tpu_torch.Aligner(seq=genome, preset=preset, device="cpu")
+    n1, n2 = ck.launches, bt.launches
+    got = gpu._engine.map_batch(reads, cs=True, md=True)
+    assert ck.launches > n1 and bt.launches > n2
+    want = cpu._engine.map_batch(reads, cs=True, md=True)
+    assert [gpu._to_mappings(r) for r in got] == [cpu._to_mappings(r) for r in want]
+    assert all(got)
 
 
 @pytest.mark.cuda

@@ -217,9 +217,6 @@ def test_unported_entry_points_raise(data, aligners):
             tal.enable_threading(2)
     finally:
         tal._config.worker_processes = 0
-    with pytest.raises(NotImplementedError, match="splice"):
-        mappy_rs_tpu_torch.Aligner(seq=genome[:50_000], preset="splice",
-                                   device="cpu")
     # the device extension backend is ported: it maps, as the host one
     al = mappy_rs_tpu_torch.Aligner(seq=genome[:50_000], device="cpu")
     read = genome[1000:2000]
