@@ -29,7 +29,11 @@ non-zero):
      100 bp of their origin, both kernels must have launched, the index
      tensors must be on the card, one front-end dispatch must run under
      torch.cuda.set_sync_debug_mode("error"), and 64 reads must map
-     identically on the card and through the CPU plain versions.
+     identically on the card and through the CPU plain versions.  Then
+     the front-end probes on a [256, 1024] batch: probe_front_end()
+     (pipelined and blocking seconds per batch) and front_end_roofline()
+     (int ops and bytes), with the bytes and ops as shares of 3.35 TB/s
+     and of the int32 rate that bound() uses.
   5. K3 (banded extension DP): kernel == plain version, exactly (dirs
      and the six trackers), at J=253, (512, 512), W in {32, 64, 72, 96,
      128, 160, 256, 288} (both sides of the warp/block switch at 256; 72
@@ -75,6 +79,20 @@ non-zero):
      through the CPU plain versions; and on 256 map-hifi reads the
      "device" extension backend (K3 + K4 at a=1, b=4, q=6, e=2, q2=26,
      e2=1) gives the host backend's Mappings, cs and MD included.
+ 10. the process runtime at users' size: phase 4's index and reads
+     through enable_threading(4) with worker_processes = 4, first under
+     topology "device_owner" (the front end in this process, 4 CUDA-free
+     post-chain children), then "classic" (4 children, each with the
+     whole pipeline, its own CUDA context and index copy on the card).
+     Each must start its children (_procs set: the fallback to threads
+     fails the phase), give phase 4's threaded Mappings for all 8,192
+     reads (every field, cs too), place >= 99%, and hold the card from
+     the right processes (nvidia-smi's compute apps: no child under
+     "device_owner", every child under "classic").  Then the host
+     backtrack on the card: backtrack_fits made to refuse every A
+     in-process, 256 of phase 4's reads and 8 of phase 8's 100 kb reads
+     map through K1 and the host backtrack exactly as through K2, with
+     K1 launched and K2 not.
 Prints per-kernel times (CUDA events around eager calls, the JSON
 line's `ms`; also as CUDA-graph replays, `graph_ms`, which leave out
 the host's launch cost) beside the plain versions' and each
@@ -535,9 +553,11 @@ def phase_slice(al, reads, starts, genome) -> dict:
     bt.launches = 0
     t0 = time.perf_counter()
     n_hit = n_ok = 0
+    out = {}
     for mappings, data in al.map_batch(
         [{"i": i, "seq": s} for i, s in enumerate(reads)]
     ):
+        out[data["i"]] = [mapping_fields(m) for m in mappings]
         if mappings:
             n_hit += 1
             if abs(mappings[0].target_start - starts[data["i"]]) < 100:
@@ -572,8 +592,30 @@ def phase_slice(al, reads, starts, genome) -> dict:
         if a != b:
             raise AssertionError(f"card and CPU mappings differ: {a} vs {b}")
     log("64 reads: card mappings == CPU plain-version mappings")
+    probes = front_end_probes(al, reads)
     return {"reads_per_s": rate, "fe_ms": fe_ms, "launches": launches,
-            "placed": n_ok, "wall_s": wall}
+            "placed": n_ok, "wall_s": wall, "out": out, "probes": probes}
+
+
+def front_end_probes(al, reads) -> dict:
+    """probe_front_end() and front_end_roofline() after one [256, 1024]
+    batch, and the roofline's bytes and int ops per pipelined batch as
+    shares of the memory rate and the int32 rate of bound()."""
+    al._engine.map_batch(reads[:256], cs=True)  # the batch they re-dispatch
+    probe = al.probe_front_end()
+    roof = al.front_end_roofline()
+    if len(probe) != 2 or min(probe) <= 0 or not roof:
+        raise AssertionError(f"front-end probes: {probe}, {roof}")
+    thr = probe[0]
+    shares = {"bytes_share": roof["hbm_bytes"] / thr / HBM_BYTES_PER_S,
+              "int_ops_share": roof["int_ops"] / thr / INT32_OPS_PER_S}
+    log(f"probe_front_end(): pipelined {1e3 * probe[0]:.3f} ms, blocking "
+        f"{1e3 * probe[1]:.3f} ms per batch; front_end_roofline(): "
+        f"{json.dumps(roof)}; per pipelined batch "
+        f"{100 * shares['bytes_share']:.3f}% of {HBM_BYTES_PER_S / 1e12:.2f} "
+        f"TB/s, {100 * shares['int_ops_share']:.3f}% of "
+        f"{INT32_OPS_PER_S / 1e12:.2f} Top/s int32")
+    return {"probe_s": probe, "roofline": roof, **shares}
 
 
 # ----------------------------------------------------------- phases 5 + 6
@@ -1079,7 +1121,7 @@ def phase_long_reads(al, genome) -> dict:
             "placed": placed, "split": split, "n_reads": len(reads),
             "launches": launches,
             "fe_ms": fe_ms, "fe_thread_ms_per_batch": fe_thread_ms,
-            "shape": [B, L, A]}
+            "shape": [B, L, A], "sel": sel, "got": got}
 
 
 # --------------------------------------------------------------- phase 9
@@ -1218,7 +1260,7 @@ def phase_presets(genome: str) -> dict:
         shapes = {}
         for L in sorted(buckets):
             B, M, A = eng.fe_shapes(L)
-            fits = eng._kernels_fit(A)
+            fits = eng._chain_fits(A) and eng._bt_enabled(A)
             shapes[L] = {"reads": buckets[L], "B": B, "M": M, "A": A,
                          "kernels_fit": fits}
             if not fits:
@@ -1334,6 +1376,149 @@ def phase_presets(genome: str) -> dict:
         del al, eng, dev, cpu
     return results
 
+# -------------------------------------------------------------- phase 10
+def card_pids() -> list:
+    """PIDs of the processes holding a context on the card, one per
+    process (where this process runs in another PID namespace than
+    nvidia-smi sees, it prints other PIDs, e.g. 1 for every process)."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return [int(x) for x in res.stdout.split() if x.strip().isdigit()]
+
+
+def phase_procs(al, reads, starts, threaded: dict, rate4: float) -> dict:
+    """Phase 4's reads through worker_processes = 4 under each topology."""
+    from mappy_rs_tpu_torch.ops import backtrack as bt
+    from mappy_rs_tpu_torch.ops import chain_kernel as ck
+
+    import torch
+
+    payload = [{"i": i, "seq": s} for i, s in enumerate(reads)]
+    runs = {}
+    for topology in ("device_owner", "classic"):
+        al._config.worker_processes = 4
+        al._config.topology = topology
+        free0, total = torch.cuda.mem_get_info()
+        t0 = time.perf_counter()
+        al.enable_threading(4)
+        if al._procs is None:
+            raise AssertionError(f"{topology}: worker processes did not start")
+        t_start = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        al.warmup(reads[:512])  # each child's first chunk (classic: upload)
+        t_warm = time.perf_counter() - t0
+        al.reset_metrics()
+        ck.launches = 0
+        bt.launches = 0
+        t0 = time.perf_counter()
+        out = {d["i"]: [mapping_fields(m) for m in ms]
+               for ms, d in al.map_batch(payload)}
+        wall = time.perf_counter() - t0
+        launches = {"chain_dp": ck.launches, "backtrack_chains": bt.launches}
+        m = al.metrics
+        children = al._procs.pids
+        on_card = card_pids()
+        grown = (free0 - torch.cuda.mem_get_info()[0]) / 1e6
+        al.enable_threading(0)
+        n_diff = sum(1 for i in threaded if out.get(i) != threaded[i])
+        placed = sum(1 for i, s in enumerate(starts)
+                     if out[i] and abs(out[i][0][5] - s) < 100)
+        if os.getpid() in on_card:
+            held = [p for p in children if p in on_card]
+            how = "by PID"
+        else:
+            # PIDs of another namespace: nvidia-smi lists one line per
+            # process with a context, this process's among them
+            held = children[: len(on_card) - 1]
+            how = (f"by count: nvidia-smi's PIDs {on_card} are not this "
+                   f"namespace's ({os.getpid()}), one per process")
+        rate = len(reads) / wall
+        log(f"{topology}: 4 processes started in {t_start:.1f} s, warmed in "
+            f"{t_warm:.1f} s; {len(reads)} reads in {wall:.3f} s = "
+            f"{rate:.1f} reads/s (4 proxies; phase 4's threads "
+            f"{rate4:.1f}; os.cpu_count() {os.cpu_count()}); {n_diff} "
+            f"reads differ from phase 4's threads; within 100 bp {placed} "
+            f"({100.0 * placed / len(reads):.2f}%); this process's K1/K2 "
+            f"launches {launches}; compute apps on the card {on_card} "
+            f"(this process {os.getpid()}, children {children}): children "
+            f"holding the card {len(held)}, {how}; device memory in use "
+            f"grew {grown:.1f} MB; front-end batches "
+            f"{m.get('fe_batches', 0):.0f}")
+        log(f"{topology} metrics (summed over the processes): " + json.dumps(
+            {k: m[k] for k in sorted(m) if k.startswith(
+                ("time_", "calls_", "fe_", "anchor_", "worker_"))}))
+        if n_diff:
+            raise AssertionError(f"{topology}: {n_diff} reads differ from threads")
+        if placed < 0.99 * len(reads):
+            raise AssertionError(f"{topology}: only {placed} reads placed")
+        if topology == "device_owner":
+            if held or not on_card:
+                raise AssertionError(
+                    f"device_owner: compute apps {on_card}, this process "
+                    f"{os.getpid()}, children {children}")
+            if min(launches.values()) <= 0:
+                raise AssertionError("device_owner: K1/K2 never launched "
+                                     "in the parent")
+        elif (len(held) != len(children) or len(on_card) != len(children) + 1
+              or m.get("fe_batches", 0) <= 0):
+            raise AssertionError(f"classic: children {children}, compute "
+                                 f"apps {on_card}, front-end batches "
+                                 f"{m.get('fe_batches', 0)}")
+        runs[topology] = {"reads_per_s": rate, "wall_s": wall,
+                          "start_s": t_start, "warmup_s": t_warm,
+                          "placed": placed, "differ": n_diff,
+                          "launches": launches, "children": children,
+                          "compute_apps": on_card, "children_on_card":
+                          len(held), "card_mb_grown": grown,
+                          "fe_batches": m.get("fe_batches", 0)}
+    al._config.worker_processes = 0
+    al._config.topology = "classic"
+    return runs
+
+
+def phase_host_backtrack(al, reads, threaded: dict, long_sel,
+                         long_got) -> dict:
+    """K2 refused at every A: K1 and the host backtrack, == the K2 path."""
+    from mappy_rs_tpu_torch.models import pipeline
+    from mappy_rs_tpu_torch.ops import backtrack as bt
+    from mappy_rs_tpu_torch.ops import chain_kernel as ck
+
+    eng = al._engine
+    fits = pipeline.backtrack_fits
+    pipeline.backtrack_fits = lambda A: False
+    try:
+        res = {}
+        for name, sel, want in (
+            ("phase 4", reads[:256], [threaded[i] for i in range(256)]),
+            ("phase 8", long_sel, [[mapping_fields(m) for m in ms]
+                                   for ms in long_got]),
+        ):
+            eng.metrics.reset()
+            ck.launches = 0
+            bt.launches = 0
+            t0 = time.perf_counter()
+            got = [[mapping_fields(m) for m in al._to_mappings(r)]
+                   for r in eng.map_batch(sel, cs=True)]
+            wall = time.perf_counter() - t0
+            launches = {"chain_dp": ck.launches,
+                        "backtrack_chains": bt.launches}
+            n_diff = sum(1 for a, b in zip(got, want) if a != b)
+            host_bt = eng.metrics.snapshot().get("host_bt_batches", 0)
+            log(f"host backtrack, {name}: {len(sel)} reads, {n_diff} differ "
+                f"from the K2 path; launches {launches}; {host_bt:.0f} "
+                f"host-backtrack batches; {wall:.1f} s")
+            if n_diff or launches["chain_dp"] <= 0 or \
+                    launches["backtrack_chains"] != 0 or host_bt <= 0:
+                raise AssertionError(f"host backtrack, {name}: {n_diff} "
+                                     f"differ, launches {launches}")
+            res[name] = {"reads": len(sel), "differ": n_diff,
+                         "launches": launches, "wall_s": wall}
+    finally:
+        pipeline.backtrack_fits = fits
+    return res
+
 
 def main() -> int:
     import torch
@@ -1367,6 +1552,12 @@ def main() -> int:
     t0 = time.perf_counter()
     presets = phase_presets(genome)
     log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    procs = phase_procs(al, reads, starts, sl["out"], sl["reads_per_s"])
+    host_bt = phase_host_backtrack(al, reads, sl.pop("out"),
+                                   long_reads.pop("sel"),
+                                   long_reads.pop("got"))
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, src, repl in (
@@ -1400,6 +1591,9 @@ def main() -> int:
                                   ("extend_dp", "traceback")},
               "splice_sweep": kern["chain_dp"].get("splice_sweep"),
               "presets": presets,
+              "front_end_probes": sl["probes"],
+              "process_runtime": procs, "host_backtrack": host_bt,
+              "cpu_count": os.cpu_count(),
               "seconds": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:

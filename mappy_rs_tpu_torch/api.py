@@ -17,14 +17,14 @@ Same classes, constructor kwargs and error strings as the JAX package's
 api.py, plus one kwarg: ``device`` (AlignerConfig.device, default
 "cuda"), where the front end and the index tensors live.  "cuda"
 without a card raises; the port never moves to the CPU quietly.  Not
-ported yet (raise NotImplementedError): worker processes
-(``config.worker_processes > 0``), ``enable_mesh``, ``enable_sharding``
-and ``map_batch_positions``.
+ported yet (raise NotImplementedError): ``enable_mesh``,
+``enable_sharding`` and ``map_batch_positions``.
 """
 from __future__ import annotations
 
 import enum
 import os
+import sys
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -47,7 +47,7 @@ from .runtime.batch import AlignmentBatchResultIter, WorkerPool
 CIGAR_CHARS = "MIDNSHP=X"
 _MULTI_TODO = (
     "multi-device mapping (enable_mesh / enable_sharding / "
-    "map_batch_positions) is not ported yet (ROADMAP Queue 1 item 10)"
+    "map_batch_positions) is not ported yet (ROADMAP Queue 1 item 3)"
 )
 
 
@@ -323,18 +323,55 @@ class Aligner:
         self._engine = AlignmentEngine(index, map_opt, self._config)
         self._engine_lock = threading.Lock()
         self._pool: Optional[WorkerPool] = None
+        self._procs = None
         self.n_threads = 0
 
     @property
     def metrics(self) -> Dict[str, float]:
         """Engine observability counters (reads/sec, DP cell-updates/sec,
-        per-stage wall times)."""
-        return self._engine.metrics.snapshot()
+        per-stage wall times).  In multi-process mode the children's
+        counters are summed into the parent's snapshot."""
+        snap = self._engine.metrics.snapshot()
+        if self._procs is not None:
+            for child in self._procs.metrics():
+                for k, v in child.items():
+                    if isinstance(v, (int, float)):
+                        snap[k] = snap.get(k, 0) + v
+            cells = snap.get("dp_cells", 0.0)
+            t_ext = snap.get("time_extend_s", 0.0)
+            if cells and t_ext:
+                snap["dp_cells_per_sec"] = cells / t_ext
+            # the stage times above are seconds summed over every process
+            # and its threads, not wall time; the divisor for a
+            # per-process view travels with the snapshot
+            snap["worker_procs"] = self._procs.n_procs
+        return snap
+
+    def probe_front_end(self, n: int = 10) -> list:
+        """Front-end seconds per batch from re-dispatching the last
+        batch n times: [pipelined, blocking] (AlignmentEngine.
+        probe_front_end).  In multi-process mode the engine that ran the
+        front ends answers: the parent's under "device_owner", child
+        0's under "classic".  [] before any batch."""
+        if self._procs is not None:
+            return self._procs.probe_front_end(n)
+        return self._engine.probe_front_end(n)
+
+    def front_end_roofline(self) -> dict:
+        """Integer-op and memory-byte cost model of one front-end batch
+        (AlignmentEngine.front_end_roofline), from the same engine as
+        probe_front_end.  {} before any batch."""
+        if self._procs is not None:
+            return self._procs.front_end_roofline()
+        return self._engine.front_end_roofline()
 
     def reset_metrics(self) -> None:
-        """Zero all engine counters/timers (call after warmup() so the
-        metrics reflect steady-state mapping only)."""
+        """Zero all engine counters/timers, every worker process's too
+        (call after warmup() so the metrics reflect steady-state mapping
+        only)."""
         self._engine.metrics.reset()
+        if self._procs is not None:
+            self._procs.reset_metrics()
 
     # --- introspection (lib.rs:438-459, 650-670) -----------------------
     def __bool__(self) -> bool:
@@ -413,21 +450,60 @@ class Aligner:
 
     # --- threaded streaming path (lib.rs:535-648, 768-906) -------------
     def enable_threading(self, n_threads: int) -> None:
-        """Spin up the persistent pool of in-process worker threads.
+        """Spin up the persistent worker pool.
 
-        Worker processes (``config.worker_processes > 0``) are not
-        ported yet and raise NotImplementedError."""
-        if self._config.worker_processes > 0:
-            raise NotImplementedError(
-                "worker processes (worker_processes > 0) are not ported "
-                "yet (ROADMAP Queue 1 item 8); use threads"
-            )
+        With ``config.worker_processes > 0`` (or MAPPY_RS_TPU_PROCS) the
+        pool's workers become proxies to that many spawned child
+        processes (runtime/procpool.py "classic", runtime/devowner.py
+        "device_owner", chosen by ``config.topology``): the same queueing
+        contract, with the post-chain's Python and C++ scaling past the
+        interpreter lock.  Falls back to in-process threads, with a line
+        on stderr, if the children fail to start."""
         self.n_threads = n_threads
         if self._pool is not None:
             self._pool.shutdown()
             self._pool = None
+        if self._procs is not None:
+            self._procs.shutdown()
+            self._procs = None
         if n_threads <= 0:
             return
+        n_procs = self._config.worker_processes
+        if n_procs > 0:
+            topology = self._config.topology
+            if topology not in ("classic", "device_owner"):
+                raise ValueError(f"unknown topology {topology!r}")
+            procs = None
+            try:
+                if topology == "device_owner":
+                    from .runtime.devowner import DevOwnerMapper
+
+                    procs = DevOwnerMapper(n_procs, self._engine, self._index,
+                                           self._map_opt, self._config)
+                else:
+                    from .runtime.procpool import ProcMapper
+
+                    procs = ProcMapper(n_procs, self._index, self._map_opt,
+                                       self._config)
+                if not procs.wait_ready():
+                    raise RuntimeError("a worker process failed to start")
+            except Exception as exc:  # noqa: BLE001 — degrade, don't die
+                print(
+                    f"mappy_rs_tpu_torch: worker processes unavailable "
+                    f"({exc}); falling back to threads",
+                    file=sys.stderr,
+                )
+                if procs is not None:
+                    procs.shutdown()
+                procs = None
+            if procs is not None:
+                self._procs = procs
+                self._pool = WorkerPool(
+                    n_threads,
+                    [procs.map_fn(i) for i in range(n_threads)],
+                    batch_size=self._config.proc_chunk,
+                )
+                return
         self._pool = WorkerPool(
             n_threads,
             self._threaded_map,
@@ -437,9 +513,14 @@ class Aligner:
 
     def warmup(self, seqs: List[str]) -> None:
         """Pay one-time costs (kernel build, device index upload) up
-        front by mapping a representative chunk.  Optional: the first
+        front by mapping a representative chunk; in multi-process mode
+        through every worker process (the streaming queue alone would
+        let one warm child take the whole chunk).  Optional: the first
         real batch triggers the same work lazily."""
-        self._engine.map_batch(list(seqs), cs=True, md=False)
+        if self._procs is not None:
+            self._procs.warmup(list(seqs))
+        else:
+            self._engine.map_batch(list(seqs), cs=True, md=False)
 
     def _threaded_map(self, seqs: List[str]) -> List[List[Mapping]]:
         # threaded path hard-codes cs=True, MD=False (lib.rs:587-592).

@@ -288,6 +288,15 @@ class AlignerConfig:
     # [J, OPS] CIGAR table width of the device traceback (jobs whose
     # run-length CIGAR overflows re-run on the host engine)
     traceback_max_ops: int = 128
+    # chain backtrack: "auto" | "on" | "off".  "auto" and "on" run kernel
+    # K2 (csrc/backtrack.cu) wherever its shared memory takes the batch's
+    # anchor budget (ops/backtrack.py backtrack_fits), so only the compact
+    # [B, K, 9+2*cuts] chain table is downloaded; a batch K2 cannot hold,
+    # and every batch under "off", downloads K1's anchors with f and p and
+    # backtracks on the host (C++ backtrack_compact_batch), with the same
+    # chains.  The names are the JAX package's, where "auto" decides by
+    # platform.
+    device_backtrack: str = "auto"
     # fused C++ post-chain record emission (native/post_chain.cc):
     # regions + selection + extension + finalize + mapq in one native
     # call per batch.  False forces the stage-by-stage Python path
@@ -312,11 +321,32 @@ class AlignerConfig:
     )
     # CPU chaining predecessor cap (minimap2 max_chain_iter)
     cpu_chain_max_iter: int = 5000
-    # multi-process execution: not ported; > 0 makes enable_threading
-    # raise.  Overridable with MAPPY_RS_TPU_PROCS.
+    # multi-process execution (runtime/procpool.py, runtime/devowner.py):
+    # enable_threading's workers become proxies to this many spawned child
+    # processes, each with its own interpreter lock, so the Python and C++
+    # post-chain scale past the GIL.  0 = in-process threads.  Overridable
+    # with MAPPY_RS_TPU_PROCS.
     worker_processes: int = field(
         default_factory=lambda: int(
             os.environ.get("MAPPY_RS_TPU_PROCS", "0")
+        )
+    )
+    # multi-process topology: "classic" = every child runs the whole
+    # pipeline on cfg.device (its own CUDA context and index upload);
+    # "device_owner" = the parent owns the only CUDA context and index
+    # copy and runs every front end, and the children are CUDA-free
+    # post-chain workers.  Overridable with MAPPY_RS_TPU_TOPOLOGY.
+    topology: str = field(
+        default_factory=lambda: os.environ.get(
+            "MAPPY_RS_TPU_TOPOLOGY", "classic"
+        )
+    )
+    # reads drained per proxy dispatch in multi-process mode (2x the
+    # device batch, so a child's software pipeline has batches to
+    # overlap).  Overridable with MAPPY_RS_TPU_PROC_CHUNK.
+    proc_chunk: int = field(
+        default_factory=lambda: int(
+            os.environ.get("MAPPY_RS_TPU_PROC_CHUNK", "512")
         )
     )
     # pad every device batch to the one full [B, L] shape instead of

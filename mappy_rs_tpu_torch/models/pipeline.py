@@ -21,11 +21,22 @@ uploaded with the arrays that map it back.  Splice presets extend with
 the host intron-state DP (``_run_jobs_splice``) after the same front
 end, whose chain DP takes K1's splice branch.
 
-Not ported yet (raise NotImplementedError): the multi-device front ends
-and the packed-block sink of the process runtime.
+A batch whose anchor budget kernel K2 cannot hold (and every batch
+under ``cfg.device_backtrack = "off"``) runs the front end through K1
+only (``front_end_chain``): the anchors with f and p are downloaded,
+trimmed to the anchors present, and backtracked on the host (C++
+``backtrack_compact_batch``) into the same chain table.
+
+The process runtime (runtime/procpool.py, runtime/devowner.py) drives
+the engine through ``map_batch_packed``, ``fe_submit`` / ``fe_collect``
+and ``post_chain_packed``; the packed IPC block is built by a
+``PackedSink`` (runtime/pack.py) that the native post-chain fills.
+
+Not ported yet: the multi-device front ends.
 """
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -78,16 +89,29 @@ def _pow2_at_most(n: int) -> int:
     return 1 << (n.bit_length() - 1)
 
 
-def front_end_bt(
+def _chained_anchors(
     codes: torch.Tensor, lens: torch.Tensor, dev: DeviceIndex, *,
     k: int, w: int, M: int, A: int, chain_params: ChainParams,
     window: int, mid_occ: int, q_occ_frac: float, occ_dist: int,
-    max_max_occ: int, bt_k: int, bt_cuts: int, min_cnt: int, min_sc: int,
+    max_max_occ: int,
     sk_lens: Optional[torch.Tensor] = None,
     force_inf: Optional[torch.Tensor] = None,
     pos_map: Optional[torch.Tensor] = None,
     spans: Optional[torch.Tensor] = None,
 ):
+    """sketch -> seed lookup -> chain DP (kernel K1); (anchors, f, p)."""
+    mins = sketch_compact(codes, lens if sk_lens is None else sk_lens, k, w,
+                          M, force_inf=force_inf, pos_map=pos_map, spans=spans)
+    anchors = collect_anchors(
+        mins, lens, dev, mid_occ, A, k, q_occ_frac, occ_dist, max_max_occ,
+    )
+    f, p = chain_scores_kernel(anchors, chain_params, window)
+    return anchors, f, p
+
+
+def front_end_bt(codes: torch.Tensor, lens: torch.Tensor, dev: DeviceIndex,
+                 *, bt_k: int, bt_cuts: int, min_cnt: int, min_sc: int,
+                 **kw):
     """The fused device front end: sketch -> seed lookup -> chain DP
     (kernel K1) -> chain backtrack (kernel K2), all on the device of
     `codes` with no host sync.
@@ -97,17 +121,29 @@ def front_end_bt(
     lengths and `force_inf`, `pos_map`, `spans` [B, L] as
     ops/sketch.py's sketch_compact takes them; `lens` stays the
     uncompressed read lengths (the anchors' query coordinates need
-    them).  Returns (chains int32 [B, bt_k, 9 + 2*bt_cuts], aux int32
-    [2, B] = (rep_len, n_raw)); n_raw > A marks reads whose seed hits
+    them).  `kw` are the keywords of ``_chained_anchors``.  Returns
+    (chains int32 [B, bt_k, 9 + 2*bt_cuts], aux int32 [2, B] =
+    (rep_len, n_raw)); n_raw > A marks reads whose seed hits
     overflowed the anchor budget."""
-    mins = sketch_compact(codes, lens if sk_lens is None else sk_lens, k, w,
-                          M, force_inf=force_inf, pos_map=pos_map, spans=spans)
-    anchors = collect_anchors(
-        mins, lens, dev, mid_occ, A, k, q_occ_frac, occ_dist, max_max_occ,
-    )
-    f, p = chain_scores_kernel(anchors, chain_params, window)
+    anchors, f, p = _chained_anchors(codes, lens, dev, **kw)
     chains = backtrack_chains(anchors, f, p, bt_k, bt_cuts, min_cnt, min_sc)
     return chains, torch.stack([anchors["rep_len"], anchors["n_raw"]])
+
+
+def front_end_chain(codes: torch.Tensor, lens: torch.Tensor,
+                    dev: DeviceIndex, **kw):
+    """The device front end without the backtrack (kernel K1 only), for
+    batches that the host backtracks.  Same inputs as ``front_end_bt``
+    less its backtrack keywords.  Returns (stack int32 [5, B, A] =
+    meta, rpos, qpos, f, p with meta = rev<<30 | valid<<29 |
+    min(span, 255)<<21 | rid, the layout native backtrack_compact_batch
+    reads; counts int32 [3, B] = n, n_raw, rep_len).  Valid anchors
+    come first in each row, so the first max(n) columns hold them all."""
+    a, f, p = _chained_anchors(codes, lens, dev, **kw)
+    meta = ((a["rev"] << 30) | (a["valid"].to(torch.int32) << 29)
+            | (a["span"].clamp(0, 255) << 21) | a["rid"])
+    return (torch.stack([meta, a["rpos"], a["qpos"], f, p]),
+            torch.stack([a["n"], a["n_raw"], a["rep_len"]]))
 
 
 @dataclass
@@ -121,13 +157,18 @@ class _ExtJob:
 
 @dataclass
 class _FrontEndHandles:
-    """One dispatched front end: host-side results (pinned on CUDA)
-    and the event that marks their download complete (None on CPU)."""
+    """One dispatched front end.  With K2 (`bt_cuts` None): the chain
+    table and aux (rep_len, n_raw) already copied to the host (pinned
+    on CUDA).  For the host backtrack: the anchor stack still on the
+    device, its counts (n, n_raw, rep_len) copied to the host, and the
+    cuts the host backtrack records.  `done` marks the copies complete
+    (None on CPU)."""
 
-    chains: torch.Tensor
+    out: torch.Tensor
     aux: torch.Tensor
     done: Optional[torch.cuda.Event]
     inputs: tuple  # staged uploads, kept alive until the batch is done
+    bt_cuts: Optional[int] = None
 
 
 class AlignmentEngine:
@@ -151,6 +192,10 @@ class AlignmentEngine:
         # band width class for flank extensions
         self.flank_band = 128
         self.metrics = EngineMetrics()
+        # the last front-end dispatch: (B, L, M, A) and a closure that
+        # re-runs it on its uploaded inputs (probe_front_end)
+        self._probe_shape: Optional[Tuple[int, int, int, int]] = None
+        self._probe_dispatch = None
         max_gap_ref = opt.max_gap_ref if opt.max_gap_ref >= 0 else opt.max_gap
         self._chain_params = ChainParams(
             max_dist_x=max_gap_ref,
@@ -173,6 +218,46 @@ class AlignmentEngine:
     ) -> List[List[Region]]:
         """Map a batch of reads; returns per-read region lists (aligned,
         mapq'd, primary-marked), best first."""
+        return self._map(seqs, cs, md, None)
+
+    def map_batch_packed(
+        self, seqs: Sequence[str], cs: bool = False, md: bool = False,
+        no_2nd: bool = False,
+    ):
+        """Map a batch straight into the packed IPC block
+        (runtime/pack.py): reads that the native post-chain finishes go
+        from its flat arrays into the block without Region objects.
+        Equal to pack_regions_block(map_batch(seqs, cs, md), no_2nd)."""
+        from ..runtime.pack import PackedSink
+
+        sink = PackedSink(len(seqs), no_2nd)
+        out = self._map(seqs, cs, md, sink)
+        with self.metrics.timer("finalize"):
+            return sink.finish(out)
+
+    def post_chain_packed(
+        self,
+        codes: List[np.ndarray],
+        chains: np.ndarray,
+        rep_len: np.ndarray,
+        cs: bool = True,
+        md: bool = False,
+        no_2nd: bool = False,
+    ):
+        """The device-owner topology's child step: compact chains from the
+        parent's front end (fe_collect) -> the finished packed block, all
+        on the host (native post-chain, Python path for its fallbacks)."""
+        from ..runtime.pack import PackedSink
+
+        with self.metrics.timer("map_batch"):
+            self.metrics.add("reads", len(codes))
+            sink = PackedSink(len(codes), no_2nd)
+            out: List[List[Region]] = [[] for _ in codes]
+            self._post_chain_tail(chains, rep_len, codes, out, cs, md, sink)
+            with self.metrics.timer("finalize"):
+                return sink.finish(out)
+
+    def _map(self, seqs: Sequence[str], cs: bool, md: bool, sink):
         out: List[List[Region]] = [[] for _ in seqs]
         with self.metrics.timer("map_batch"):
             self.metrics.add("reads", len(seqs))
@@ -186,13 +271,13 @@ class AlignmentEngine:
                 from .. import native
 
                 if native.available():
-                    self._map_cpu(codes, out, cs, md)
+                    self._map_cpu(codes, out, cs, md, sink)
                     return out
             buckets = {}
             for i, c in enumerate(codes):
                 buckets.setdefault(self._bucket_len(len(c)), []).append(i)
             for L, idxs in buckets.items():
-                self._map_bucket(L, idxs, codes, out, cs, md)
+                self._map_bucket(L, idxs, codes, out, cs, md, sink=sink)
         return out
 
     def _map_cpu(
@@ -201,6 +286,7 @@ class AlignmentEngine:
         out: List[List[Region]],
         cs: bool,
         md: bool,
+        sink=None,
     ) -> None:
         """Full-batch CPU mapping: native front end (sketch + lookup +
         chain + backtrack, native/front_end.cc) feeding the same
@@ -219,7 +305,7 @@ class AlignmentEngine:
                 8, self.SEG_LEN, occ_dist=od, max_max_occ=mmo,
                 bw_long=int(self.opt.bw_long), use_rmq=use_rmq,
             )
-        self._post_chain_tail(chains, rep_len, codes, out, cs, md)
+        self._post_chain_tail(chains, rep_len, codes, out, cs, md, sink)
 
     def _post_chain_tail(
         self,
@@ -229,13 +315,15 @@ class AlignmentEngine:
         out: List[List[Region]],
         cs: bool,
         md: bool,
+        sink=None,
     ) -> None:
         """Everything after compact chains are known: fused native
         post-chain for the fast path, Python regions + extension +
-        finalize for fallback reads (the _map_cpu path)."""
+        finalize for fallback reads.  Shared by _map_cpu and the
+        device-owner topology's post-chain workers (post_chain_packed)."""
         fb = self._post_chain_native(
             list(range(len(codes))), chains,
-            np.asarray(rep_len, np.int32), codes, out, cs, md,
+            np.asarray(rep_len, np.int32), codes, out, cs, md, sink,
         )
         if fb is not None and not fb.any():
             return
@@ -260,15 +348,25 @@ class AlignmentEngine:
                 return b
         return _pow2_at_least(n, self.cfg.length_buckets[-1])
 
-    def _kernels_fit(self, A: int) -> bool:
-        """Whether kernels K1 and K2 take A anchors per read at the
-        configured window (the CPU's plain versions take any shape).
-        The JAX package's B*A > 256*1024 gate is a TPU VMEM limit; on
-        the card K1 keeps only its window and K2 one bit per anchor, so
-        every A that fe_shapes makes (up to 524,288) fits."""
-        return self.device.type == "cpu" or (
-            chain_fits(A, self.cfg.pallas_chain_window)
-            and backtrack_fits(A))
+    def _chain_fits(self, A: int) -> bool:
+        """Whether kernel K1 takes A anchors per read at the configured
+        window (the CPU's plain version takes any shape).  On the card
+        K1 keeps only its window in shared memory, so every A that
+        fe_shapes makes fits."""
+        return self.device.type == "cpu" or chain_fits(
+            A, self.cfg.pallas_chain_window)
+
+    def _bt_enabled(self, A: int) -> bool:
+        """Whether a batch of A anchors per read backtracks in kernel K2
+        (cfg.device_backtrack "auto"/"on") or on the host ("off", or a
+        budget over what K2's shared memory holds: backtrack_fits, A <=
+        1,858,560).  The gate is the same on the CPU, so the CPU runs the
+        card's routing.  The JAX package's B*A > 256*1024 gate is a TPU
+        VMEM limit and is not used."""
+        mode = self.cfg.device_backtrack
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(f"unknown device_backtrack {mode!r}")
+        return mode != "off" and backtrack_fits(A)
 
     def fe_shapes(self, L: int, a_boost: int = 1, b_real: int = 0):
         """Static device-batch shapes for the L bucket: (B, M, A).
@@ -319,19 +417,27 @@ class AlignmentEngine:
         return host
 
     def _fe_submit_batch(self, codes_sel, L: int, B: int, M: int, A: int,
-                         bt_cuts: int):
-        """Stage + dispatch ONE fused front end (<= B reads of the L
-        bucket); returns (lens, handles) without waiting for the device.
-        On CUDA the upload comes from pinned memory, the chain table is
-        copied into pinned memory asynchronously, and an event recorded
-        after the copy tells _fe_collect when it has landed."""
+                         use_bt: bool, bt_cuts: int):
+        """Stage + dispatch ONE front end (<= B reads of the L bucket):
+        the fused K1 + K2 graph when `use_bt`, else K1 only for the host
+        backtrack.  Returns (lens, handles) without waiting for the
+        device.  On CUDA the upload comes from pinned memory, the chain
+        table (or the anchor counts) is copied into pinned memory
+        asynchronously, and an event recorded after the copy tells
+        _fe_collect when it has landed."""
         host = self.stage_batch(codes_sel, L, B)
         lens = host["lens"]
         kw = self._fe_kwargs(M, A, bt_cuts)
+        if not use_bt:
+            for name in ("bt_k", "bt_cuts", "min_cnt", "min_sc"):
+                del kw[name]
+        fn = front_end_bt if use_bt else front_end_chain
         dev = self.dev
         cuda = self.device.type == "cuda"
         self.metrics.add("fe_batches", 1)
         self.metrics.add("fe_reads", len(codes_sel))
+        if not use_bt:
+            self.metrics.add("host_bt_batches", 1)
         # chain DP cell updates this dispatch: B*A anchors x window
         self.metrics.add("chain_cells", float(B) * A * kw["window"])
         with self.metrics.timer("front_end"):
@@ -340,28 +446,149 @@ class AlignmentEngine:
                 staged = {n: t.pin_memory() for n, t in staged.items()}
             up = {n: t.to(self.device, non_blocking=True)
                   for n, t in staged.items()}
-            chains, aux = front_end_bt(up.pop("codes"), up.pop("lens"), dev,
-                                       **up, **kw)
+            codes_d, lens_d = up.pop("codes"), up.pop("lens")
+            out, aux = fn(codes_d, lens_d, dev, **up, **kw)
             done = None
             if cuda:
-                chains_h = torch.empty(chains.shape, dtype=chains.dtype,
-                                       pin_memory=True)
                 aux_h = torch.empty(aux.shape, dtype=aux.dtype,
                                     pin_memory=True)
-                chains_h.copy_(chains, non_blocking=True)
                 aux_h.copy_(aux, non_blocking=True)
+                if use_bt:
+                    out_h = torch.empty(out.shape, dtype=out.dtype,
+                                        pin_memory=True)
+                    out_h.copy_(out, non_blocking=True)
+                    out = out_h
                 done = torch.cuda.Event()
                 done.record(torch.cuda.current_stream(self.device))
-                chains, aux = chains_h, aux_h
-
-        handles = _FrontEndHandles(chains, aux, done, tuple(staged.values()))
+                aux = aux_h
+        # the last dispatch, for probe_front_end / front_end_roofline
+        self._probe_shape = (B, L, M, A)
+        self._probe_dispatch = lambda: fn(codes_d, lens_d, dev, **up, **kw)
+        handles = _FrontEndHandles(out, aux, done, tuple(staged.values()),
+                                   None if use_bt else bt_cuts)
         return lens, handles
 
     def _fe_collect(self, handles: _FrontEndHandles):
-        """Wait for a dispatched front end; (chains, aux) as numpy."""
+        """Wait for a dispatched front end; (chains [B, K, 9+2*cuts],
+        rep_len [B], n_raw [B]) as numpy.  For the host backtrack, the
+        anchor stack is downloaded trimmed to the widest read's anchors
+        and walked by native backtrack_compact_batch, which gives K2's
+        chain table."""
         if handles.done is not None:
             handles.done.synchronize()
-        return handles.chains.numpy(), handles.aux.numpy()
+        aux = handles.aux.numpy()
+        if handles.bt_cuts is None:
+            return handles.out.numpy(), aux[0], aux[1]
+        from .. import native
+
+        n, n_raw, rep_len = aux
+        A = handles.out.shape[2]
+        A_used = min(_pow2_at_least(max(int(n.max(initial=0)), 1)), A)
+        arr = handles.out[:, :, :A_used].cpu().numpy()
+        chains = native.backtrack_compact_batch(
+            arr, self.opt.min_cnt, self.opt.min_chain_score,
+            self.cfg.backtrack_k, handles.bt_cuts, self.SEG_LEN,
+        )
+        if chains is None:
+            raise RuntimeError(
+                "the host chain backtrack needs the native library "
+                "(backtrack_compact_batch)")
+        return chains, rep_len, n_raw
+
+    def _check_chain_fits(self, A: int) -> None:
+        if not self._chain_fits(A):
+            raise ValueError(
+                f"anchor budget A={A} at window "
+                f"{self.cfg.pallas_chain_window} is outside what the chain "
+                "kernel takes (ops/chain_kernel.py chain_fits)"
+            )
+
+    def fe_submit(self, codes_sel, L: int, a_boost: int = 1):
+        """Dispatch ONE front-end batch (<= B reads of the L bucket) at
+        the full batch shape and return a ticket for fe_collect, without
+        waiting for the device.  Thread-safe.  The device-owner topology
+        (runtime/devowner.py) runs its front ends through this pair."""
+        B, M, A = self.fe_shapes(L, a_boost=a_boost)
+        if len(codes_sel) > B:
+            raise ValueError(f"chunk of {len(codes_sel)} > batch {B}")
+        self._check_chain_fits(A)
+        bt_cuts = min(8, L // self.SEG_LEN)
+        _lens, handles = self._fe_submit_batch(
+            codes_sel, L, B, M, A, self._bt_enabled(A), bt_cuts)
+        return handles, len(codes_sel)
+
+    def fe_collect(self, ticket):
+        """Wait for a fe_submit ticket; (chains [n, K, 9+2*cuts], rep_len
+        [n], n_raw [n]) for the n submitted reads: the compact chain rows
+        (regions_from_compact layout) that post_chain_packed takes."""
+        handles, n = ticket
+        with self.metrics.timer("front_end"):
+            chains, rep_len, n_raw = self._fe_collect(handles)
+        return chains[:n], rep_len[:n], n_raw[:n]
+
+    def probe_front_end(self, n: int = 10) -> List[float]:
+        """Front-end seconds per batch from re-dispatching the last
+        batch: [0] = pipelined (n dispatches, one wait, / n), [1] =
+        blocking (one dispatch and its wait).  The device work only:
+        no staging, no download.  On CUDA each wait is
+        torch.cuda.synchronize.  [] until a batch has run."""
+        replay = self._probe_dispatch
+        if replay is None:
+            return []
+
+        def wait():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        replay()  # warm
+        wait()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            replay()
+        wait()
+        thr = (time.perf_counter() - t0) / n
+        t0 = time.perf_counter()
+        replay()
+        wait()
+        return [thr, time.perf_counter() - t0]
+
+    def front_end_roofline(self) -> dict:
+        """The JAX package's cost model of ONE front-end batch, from the
+        shapes of the last dispatch, at the window K1 chains with
+        (cfg.pallas_chain_window): the integer operations and the device
+        memory bytes the front end must move.  With probe_front_end's
+        seconds per batch these give the shares of the card's int32 and
+        memory rates.  Op counts are algorithmic minimums (each
+        elementwise op once); bytes count the gather windows plus one
+        write and read of ~30 [B, L] sketch intermediates.  {} until a
+        batch has run."""
+        shape = self._probe_shape
+        if shape is None:
+            return {}
+        B, L, M, A = shape
+        k, w = self.index.k, self.index.w
+        W = self.cfg.pallas_chain_window
+        log2A = max(A - 1, 1).bit_length()
+        int_ops = (
+            B * L * (6 * k + 14 * w + 46)   # sketch (single-word path)
+            + B * M * 300                    # probe compare + argmax
+            + B * M * 250                    # filters (sorts, cummax)
+            + B * A * 40                     # slot expansion
+            + B * A * 6 * log2A * log2A      # anchor lex sort (bitonic)
+            + B * A * W * 12                 # chain window max-plus DP
+        )
+        hbm_bytes = (
+            B * L * (1 + 30 * 4)             # codes in + sketch interm.
+            + B * M * (256 * 4 + 4 + 8)      # hash rows + val + offcnt
+            + B * A * (8 + 8)                # meta + pos gathers
+            + B * A * 6 * 4 * 2              # anchor arrays r/w
+            + B * A * 4 * 8                  # chain anchor re-reads
+        )
+        return {
+            "B": B, "L": L, "M": M, "A": A, "window": W,
+            "int_ops": float(int_ops),
+            "hbm_bytes": float(hbm_bytes),
+        }
 
     def _map_bucket(
         self,
@@ -372,36 +599,31 @@ class AlignmentEngine:
         cs: bool,
         md: bool,
         a_boost: int = 1,
+        sink=None,
     ) -> None:
         k = self.index.k
         B, M, A = self.fe_shapes(L, a_boost=a_boost, b_real=len(idxs))
-        if not self._kernels_fit(A):
-            raise ValueError(
-                f"anchor budget A={A} at window "
-                f"{self.cfg.pallas_chain_window} is outside what the "
-                "chain kernels take (ops/chain_kernel.py chain_fits, "
-                "ops/backtrack.py backtrack_fits)"
-            )
+        self._check_chain_fits(A)
+        use_bt = self._bt_enabled(A)
         overflow_reads: List[int] = []
         bt_cuts = min(8, L // self.SEG_LEN)
 
         def stage_dispatch(chunk):
             lens, handles = self._fe_submit_batch(
-                [codes[ri] for ri in chunk], L, B, M, A, bt_cuts
+                [codes[ri] for ri in chunk], L, B, M, A, use_bt, bt_cuts
             )
             return chunk, lens, handles
 
         def stage_process(state):
             chunk, lens, handles = state
             with self.metrics.timer("front_end"):
-                chains_np, aux = self._fe_collect(handles)
-            rep_len = aux[0]
-            for bi in np.nonzero(aux[1][: len(chunk)] > A)[0]:
+                chains_np, rep_len, n_raw = self._fe_collect(handles)
+            for bi in np.nonzero(n_raw[: len(chunk)] > A)[0]:
                 overflow_reads.append(chunk[int(bi)])
             fb = self._post_chain_native(
                 chunk, chains_np[: len(chunk)],
                 np.asarray(rep_len[: len(chunk)], np.int32),
-                codes, out, cs, md,
+                codes, out, cs, md, sink,
             )
             if fb is not None and not fb.any():
                 return
@@ -437,7 +659,7 @@ class AlignmentEngine:
             # remap them with a 4x budget, overwriting their results
             self.metrics.add("anchor_overflow_retries", len(overflow_reads))
             self._map_bucket(
-                L, overflow_reads, codes, out, cs, md, a_boost * 4
+                L, overflow_reads, codes, out, cs, md, a_boost * 4, sink
             )
 
     def _run_jobs(self, jobs: List[_ExtJob]) -> None:
@@ -1003,14 +1225,17 @@ class AlignmentEngine:
         out: List[List[Region]],
         cs: bool,
         md: bool,
+        sink=None,
     ):
         """Fused C++ post-chain (post_chain.cc): regions + selection +
         extension + finalize + mapq for the whole batch in ONE native
-        call, writing finished Region lists into `out`.  Returns the
-        per-read fallback mask (reads the caller must remap through the
-        Python path: zdrop splits -> inversion rescue, cap overflows),
-        or None when the fast path does not apply (splice presets, a
-        non-host extension backend, missing native lib)."""
+        call, writing finished Region lists into `out`, or, with a
+        PackedSink (map_batch_packed, post_chain_packed), its flat
+        arrays into the sink.  Returns the per-read fallback mask (reads
+        the caller must remap through the Python path: zdrop splits ->
+        inversion rescue, cap overflows), or None when the fast path
+        does not apply (splice presets, a non-host extension backend,
+        missing native lib)."""
         from .. import native
 
         if (
@@ -1039,6 +1264,14 @@ class AlignmentEngine:
          raw_tags) = res
         self.metrics.add("dp_cells", float(stats[0]))
         self.metrics.add("post_chain_fallbacks", float(fallback.sum()))
+        if sink is not None:
+            with self.metrics.timer("finalize"):
+                sink.add_native(chunk, nreg, fields, cig, ncig, raw_tags,
+                                fallback)
+                fb_idx = np.nonzero(fallback[: len(chunk)])[0]
+                if len(fb_idx):
+                    sink.mark_python(np.asarray(chunk, np.int64)[fb_idx])
+            return fallback
         with self.metrics.timer("finalize"):
             for bi, ri in enumerate(chunk):
                 if fallback[bi]:

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import mappy_rs_tpu_torch
+from mappy_rs_tpu_torch.models import pipeline
 from mappy_rs_tpu_torch.models.pipeline import front_end_bt
 from mappy_rs_tpu_torch.ops import backtrack as bt
 from mappy_rs_tpu_torch.ops import chain_kernel as ck
@@ -375,3 +376,47 @@ def test_extension_kernel_wide_bands(cuda, W):
     best = torch.stack([want[c] for c in BEST_COLS], 1)
     o2, i2 = tb.traceback_plain(want["dirs"], best, ql, tl, mode, W, 128, 10)
     assert torch.equal(o, o2) and torch.equal(i, i2)
+
+
+@pytest.mark.cuda
+def test_host_backtrack_on_card_matches_k2(cuda, monkeypatch):
+    """A batch whose budget K2 refuses (backtrack_fits made to refuse
+    every A) runs K1 and the host backtrack: the same Mappings, with K1
+    launched and K2 not."""
+    rng = np.random.default_rng(41)
+    genome = random_genome(rng, 1_000_000)
+    reads, starts = simulate(rng, genome, 64, 1000, 0.05)
+    al = mappy_rs_tpu_torch.Aligner(seq=genome, device="cuda")
+    eng = al._engine
+    want = [al._to_mappings(r) for r in eng.map_batch(reads, cs=True, md=True)]
+    monkeypatch.setattr(pipeline, "backtrack_fits", lambda A: False)
+    n1, n2 = ck.launches, bt.launches
+    got = [al._to_mappings(r) for r in eng.map_batch(reads, cs=True, md=True)]
+    assert got == want
+    assert ck.launches > n1 and bt.launches == n2
+    assert al.metrics["host_bt_batches"] > 0
+    for ms, s in zip(got, starts):
+        assert abs(ms[0].target_start - s) < 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topology", ["device_owner", "classic"])
+def test_process_runtime_on_card_matches_threads(cuda, topology):
+    """2 worker processes under each topology map like the threads."""
+    rng = np.random.default_rng(43)
+    genome = random_genome(rng, 1_000_000)
+    reads, _ = simulate(rng, genome, 512, 1000, 0.05)
+    payload = [{"i": i, "seq": s} for i, s in enumerate(reads)]
+    al = mappy_rs_tpu_torch.Aligner(seq=genome, device="cuda")
+    al.enable_threading(2)
+    want = {d["i"]: ms for ms, d in al.map_batch(payload)}
+    al._config.worker_processes = 2
+    al._config.topology = topology
+    al.enable_threading(2)
+    try:
+        assert al._procs is not None, "worker processes failed to start"
+        got = {d["i"]: ms for ms, d in al.map_batch(payload)}
+        assert al.metrics["worker_procs"] == 2
+    finally:
+        al.enable_threading(0)
+    assert got == want

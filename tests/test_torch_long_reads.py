@@ -47,8 +47,8 @@ BUCKETS = AlignerConfig().length_buckets
 
 
 def _engine(device: str):
-    """fe_shapes and _kernels_fit read only the index's w, the config
-    and the device: an engine without an index is enough."""
+    """fe_shapes, _chain_fits and _bt_enabled read only the index's w,
+    the config and the device: an engine without an index is enough."""
     return SimpleNamespace(index=SimpleNamespace(w=10), cfg=AlignerConfig(),
                            device=torch.device(device))
 
@@ -65,8 +65,9 @@ def test_every_anchor_budget_fits_both_kernels(L, a_boost):
     B, _M, A = AlignmentEngine.fe_shapes(eng, L, a_boost=a_boost)
     assert ck.chain_fits(A, eng.cfg.pallas_chain_window)
     assert bt.backtrack_fits(A)
-    # the gate in _map_bucket checks exactly these on a card engine
-    assert AlignmentEngine._kernels_fit(eng, A)
+    # the gates in _map_bucket check exactly these on a card engine
+    assert AlignmentEngine._chain_fits(eng, A)
+    assert AlignmentEngine._bt_enabled(eng, A)
     if L == BUCKETS[-1]:
         assert (B, A) == (8, 32768 * a_boost)
 
@@ -82,11 +83,19 @@ def test_fit_predicates_at_their_bounds():
 
 def test_kernel_gate_refuses_only_outside_the_predicates():
     eng = _engine("cuda")
-    assert not AlignmentEngine._kernels_fit(eng, 2_000_000)  # K2's bitmask
+    # over K2's bitmask: K1 still takes it, the host backtracks
+    assert AlignmentEngine._chain_fits(eng, 2_000_000)
+    assert not AlignmentEngine._bt_enabled(eng, 2_000_000)
+    # the same routing on the CPU, whose plain K2 would take any shape
+    assert not AlignmentEngine._bt_enabled(_engine("cpu"), 2_000_000)
+    eng.cfg.device_backtrack = "off"
+    assert not AlignmentEngine._bt_enabled(eng, 256)
     eng.cfg.pallas_chain_window = 2048  # over K1's 1,024-anchor window
-    assert not AlignmentEngine._kernels_fit(eng, 256)
-    # the CPU's plain versions take any shape
-    assert AlignmentEngine._kernels_fit(_engine("cpu"), 2_000_000)
+    assert not AlignmentEngine._chain_fits(eng, 256)
+    # the CPU's plain K1 takes any shape
+    cpu = _engine("cpu")
+    cpu.cfg.pallas_chain_window = 2048
+    assert AlignmentEngine._chain_fits(cpu, 2_000_000)
 
 
 # ---------------------------------------------------- tiled anchors

@@ -211,12 +211,6 @@ def test_unported_entry_points_raise(data, aligners):
                  lambda: tal.map_batch_positions(["ACGT"])):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
-    tal._config.worker_processes = 2
-    try:
-        with pytest.raises(NotImplementedError, match="worker processes"):
-            tal.enable_threading(2)
-    finally:
-        tal._config.worker_processes = 0
     # the device extension backend is ported: it maps, as the host one
     al = mappy_rs_tpu_torch.Aligner(seq=genome[:50_000], device="cpu")
     read = genome[1000:2000]
@@ -230,7 +224,9 @@ def test_unported_entry_points_raise(data, aligners):
 def test_import_leaves_jax_out():
     code = (
         "import sys, mappy_rs_tpu_torch, mappy_rs_tpu_torch.models.pipeline, "
-        "mappy_rs_tpu_torch.ops.cuda_build; "
+        "mappy_rs_tpu_torch.ops.cuda_build, mappy_rs_tpu_torch.runtime.devowner, "
+        "mappy_rs_tpu_torch.runtime.procpool, mappy_rs_tpu_torch.runtime.pack, "
+        "mappy_rs_tpu_torch.index.share; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'mappy_rs_tpu' or m.startswith('mappy_rs_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
