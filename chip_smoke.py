@@ -93,6 +93,22 @@ non-zero):
      in-process, 256 of phase 4's reads and 8 of phase 8's 100 kb reads
      map through K1 and the host backtrack exactly as through K2, with
      K1 launched and K2 not.
+ 11. multi-device on one card, every grid cell on cuda:0: (a) a fresh
+     Aligner(seq=<phase 4's genome>) with enable_mesh(2, n_index=2) (the
+     key table sharded by key range over 2 peers per row) and phase 4's
+     Aligner with enable_mesh(4) (data-parallel, tables replicated),
+     each through enable_threading(4) + map_batch on phase 4's 8,192
+     reads: 0 reads may differ from phase 4's Mappings, K1 launched, K2
+     not (the host backtrack, as under the JAX package's mesh), and the
+     sharded Aligner never builds the replicated tables; (b) decision
+     mode, enable_sharding(2, 2) + map_batch_positions over the 8,192
+     reads in batches of 512: >= 99% on the read's strand with r_en
+     within 100 bp of its true end, K3 launched, K3 == plain at the
+     batch's shape (J=256, 1024, 1152, W=128), and 256 reads decided as
+     through the port on a grid of CPU cells; (c) two spawned processes
+     on cuda:0, each with a 2 x 2 grid, joined over Gloo
+     (parallel/multihost.py), run the decision step on 512 reads: the
+     gathered results == a one-process 4 x 2 grid's, array for array.
 Prints per-kernel times (CUDA events around eager calls, the JSON
 line's `ms`; also as CUDA-graph replays, `graph_ms`, which leave out
 the host's launch cost) beside the plain versions' and each
@@ -1376,6 +1392,274 @@ def phase_presets(genome: str) -> dict:
         del al, eng, dev, cpu
     return results
 
+# -------------------------------------------------------------- phase 11
+DEC_BATCH = 512    # reads per map_batch_positions call (a readfish batch)
+N_DEC_CPU = 256    # decisions held against the port on CPU cells
+N_MH_READS = 512   # reads of the two-process decision step
+MH_TIMEOUT = 300   # seconds a two-process child may take
+
+
+def mesh_run(al, reads, threaded: dict, label: str) -> dict:
+    """Phase 4's reads through `al` (a grid set) with 4 threads."""
+    from mappy_rs_tpu_torch.ops import backtrack as bt
+    from mappy_rs_tpu_torch.ops import chain_kernel as ck
+
+    payload = [{"i": i, "seq": s} for i, s in enumerate(reads)]
+    al.enable_threading(4)
+    list(al.map_batch(payload[:512]))  # warm
+    al.reset_metrics()
+    ck.launches = 0
+    bt.launches = 0
+    t0 = time.perf_counter()
+    out = {d["i"]: [mapping_fields(m) for m in ms]
+           for ms, d in al.map_batch(payload)}
+    wall = time.perf_counter() - t0
+    launches = {"chain_dp": ck.launches, "backtrack_chains": bt.launches}
+    al.enable_threading(0)
+    n_diff = sum(1 for i in threaded if out.get(i) != threaded[i])
+    host_bt = al.metrics.get("host_bt_batches", 0)
+    rate = len(reads) / wall
+    log(f"{label}: {len(reads)} reads in {wall:.3f} s = {rate:.1f} reads/s "
+        f"(4 threads); {n_diff} reads differ from phase 4; launches "
+        f"{launches}; host-backtrack batches {host_bt:.0f}")
+    if n_diff:
+        raise AssertionError(f"{label}: {n_diff} reads differ from phase 4")
+    if launches["chain_dp"] <= 0 or launches["backtrack_chains"] != 0 \
+            or host_bt <= 0:
+        raise AssertionError(f"{label}: launches {launches}, host "
+                             f"backtrack batches {host_bt}")
+    return {"reads_per_s": rate, "wall_s": wall, "differ": n_diff,
+            "launches": launches, "host_bt_batches": host_bt}
+
+
+def phase_mesh(al, genome, reads, threaded: dict, rate4: float) -> dict:
+    """11a: enable_mesh(2, n_index=2) and enable_mesh(4) on cuda:0 cells."""
+    import torch
+
+    import mappy_rs_tpu_torch
+
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    al_s = mappy_rs_tpu_torch.Aligner(seq=genome)  # device="cuda"
+    al_s.enable_mesh(2, n_index=2, devices=["cuda:0"] * 4)
+    t_build = time.perf_counter() - t0
+    shards = {id(t): t for a in al_s._engine._index_shards.values()
+              for t in a.blocks.values()}
+    shard_mb = sum(t.numel() * t.element_size() for t in shards.values()) / 1e6
+    torch.cuda.synchronize()
+    grown = (torch.cuda.memory_allocated() - alloc0) / 1e6
+    replicated_mb = al._engine.dev.nbytes() / 1e6
+    log(f"enable_mesh(2, n_index=2): index built and sharded in "
+        f"{t_build:.1f} s; {len(shards)} shard tensors on the card, "
+        f"{shard_mb:.1f} MB (the replicated tables: {replicated_mb:.1f} MB); "
+        f"memory allocated on the card grew {grown:.1f} MB")
+    sharded = mesh_run(al_s, reads, threaded, "enable_mesh(2, n_index=2)")
+    if al_s._engine.index._devices:
+        raise AssertionError("the sharded grid built the replicated tables: "
+                             f"{list(al_s._engine.index._devices)}")
+    del al_s, shards
+    al.enable_mesh(4, devices=["cuda:0"] * 4)
+    dp = mesh_run(al, reads, threaded, "enable_mesh(4)")
+    log(f"phase 4's threads: {rate4:.1f} reads/s")
+    return {"sharded": dict(sharded, shard_mb=shard_mb, card_mb_grown=grown,
+                            build_s=t_build),
+            "data_parallel": dp, "replicated_mb": replicated_mb}
+
+
+def phase_decisions(al, reads, ends, rev) -> dict:
+    """11b: decision mode over phase 4's reads on cuda:0 cells."""
+    import torch
+
+    from mappy_rs_tpu_torch.ops import extend_kernel as ek
+    from mappy_rs_tpu_torch.ops.extend import BEST_COLS, extend_dp
+    from mappy_rs_tpu_torch.parallel import mesh as pm
+
+    al.enable_sharding(2, 2, devices=["cuda:0"] * 4)
+    # the first batch uploads the shards; keep its K3 inputs
+    captured = []
+    k3 = pm.extend_dp_kernel
+    pm.extend_dp_kernel = lambda *a: captured.append(a) or k3(*a)
+    try:
+        al.map_batch_positions(reads[:DEC_BATCH])
+    finally:
+        pm.extend_dp_kernel = k3
+    torch.cuda.synchronize()
+    ek.launches = 0
+    t0 = time.perf_counter()
+    dec = []
+    for s in range(0, len(reads), DEC_BATCH):
+        dec += al.map_batch_positions(reads[s:s + DEC_BATCH])
+    wall = time.perf_counter() - t0
+    launches = ek.launches
+    right = sum(1 for d, e, rv in zip(dec, ends, rev)
+                if d is not None and d["strand"] == (-1 if rv else 1)
+                and abs(d["r_en"] - e) < 100)
+    rate = len(reads) / wall
+    log(f"decision mode: {len(reads)} reads in {wall:.3f} s = {rate:.1f} "
+        f"decisions/s (batches of {DEC_BATCH}, grid 2 x 2); right strand "
+        f"and end within 100 bp {right} ({100.0 * right / len(reads):.2f}%); "
+        f"K3 launches {launches}")
+    if right < 0.99 * len(reads) or launches <= 0:
+        raise AssertionError(f"decision mode: {right} right, K3 {launches}")
+
+    # K3 == plain at decision mode's shape, on the captured jobs
+    q, t, ql, tl, W, params = captured[0]
+    J, QMAX = q.shape
+    TMAX = t.shape[1]
+    S = QMAX + TMAX - 1
+    got = ek.extend_dp_kernel(q, t, ql, tl, W, params)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    want = extend_dp(q, t, ql, tl, W, params)
+    e1.record()
+    torch.cuda.synchronize()
+    err = max(max_err(got[k], want[k]) for k in ("dirs",) + BEST_COLS)
+    k_ms = cuda_ms(lambda: ek.extend_dp_kernel(q, t, ql, tl, W, params), 20)
+    b = bound(J * (QMAX + TMAX) + 8 * J + S * J * W + 24 * J,
+              band_cells(ql.cpu().numpy(), tl.cpu().numpy(), W, S)
+              * OPS_PER_CELL_K3)
+    shape = {"J": J, "QMAX": QMAX, "TMAX": TMAX, "W": W, "max_abs_err": err,
+             "ms": k_ms, "plain_ms": e0.elapsed_time(e1), **b}
+    log(f"K3 at decision mode's shape (J={J}, {QMAX}, {TMAX}, W={W}): "
+        f"max_abs_err={err}; {k_ms:.4f} ms eager, plain "
+        f"{shape['plain_ms']:.1f} ms, bound {b['bound_ms']:.5f} ms "
+        f"({b['bound_by']})")
+    if err != 0:
+        raise AssertionError("K3 kernel != plain at decision mode's shape")
+
+    # the card's decisions == the port's on a grid of CPU cells
+    t0 = time.perf_counter()
+    al.enable_sharding(2, 2, devices=["cpu"] * 4)
+    cpu = al.map_batch_positions(reads[:N_DEC_CPU])
+    n_diff = sum(1 for a, c in zip(dec[:N_DEC_CPU], cpu) if a != c)
+    log(f"decision mode: {N_DEC_CPU} reads on CPU cells in "
+        f"{time.perf_counter() - t0:.1f} s; {n_diff} differ from the card")
+    if n_diff:
+        raise AssertionError(f"decision mode: {n_diff} reads differ card vs CPU")
+    return {"decisions_per_s": rate, "wall_s": wall, "right": right,
+            "k3_launches": launches, "k3_decision_shape": shape,
+            "cpu_differ": n_diff}
+
+
+def run_decision_step(mesh, index, opt, codes, lens) -> dict:
+    """map_batch_positions' step for codes' L bucket on `mesh`, on the
+    shards of `index` placed there: the gathered results."""
+    from mappy_rs_tpu_torch.ops.chain import ChainParams
+    from mappy_rs_tpu_torch.ops.extend import ExtendParams
+    from mappy_rs_tpu_torch.parallel.mesh import (P, build_sharded_map_step,
+                                                  device_shards,
+                                                  shard_index_by_key_range)
+    from mappy_rs_tpu_torch.parallel.multihost import (gather_results,
+                                                       put_global,
+                                                       put_global_tree,
+                                                       shard_specs_for_index)
+
+    k, L = index.k, codes.shape[1]
+    cp = ChainParams(
+        max_dist_x=opt.max_gap_ref if opt.max_gap_ref >= 0 else opt.max_gap,
+        max_dist_y=opt.max_gap, bw=opt.bw, q_span=k,
+        chn_pen_gap=opt.chain_gap_scale * 0.01 * k,
+        chn_pen_skip=opt.chain_skip_scale * 0.01 * k)
+    ep = ExtendParams(a=opt.a, b=opt.b, q=opt.q, e=opt.e, q2=opt.q2,
+                      e2=opt.e2, sc_ambi=opt.sc_ambi)
+    step = build_sharded_map_step(
+        mesh, k, index.w, max_minimizers=max(64, L // 5),
+        max_anchors=max(128, L // 4), chain_params=cp, ext_params=ep,
+        mid_occ=opt.mid_occ, chain_window=32, ext_window=128)
+    shards = put_global_tree(
+        device_shards(shard_index_by_key_range(index, mesh.shape["index"])),
+        mesh, shard_specs_for_index())
+    return gather_results(step(put_global(codes, mesh, P("data", None)),
+                               put_global(lens, mesh, P("data")), shards))
+
+
+def _mh_child(rank: int, world: int, port: int, idx_dir: str, opt,
+              batch_path: str, out_path: str) -> None:
+    """One rank of 11c: a 2 x 2 grid of cuda:0 cells."""
+    import torch
+
+    from mappy_rs_tpu_torch.index.share import load_index_dir
+    from mappy_rs_tpu_torch.parallel.multihost import (init_distributed,
+                                                       make_global_mesh)
+
+    init_distributed(f"localhost:{port}", world, rank, backend="gloo")
+    mesh = make_global_mesh(2, devices=["cuda:0"] * 4)
+    b = np.load(batch_path)
+    res = run_decision_step(mesh, load_index_dir(idx_dir), opt,
+                            b["codes"], b["lens"])
+    if rank == 0:
+        np.savez(out_path, **res)
+    torch.distributed.destroy_process_group()
+    print(f"[rank {rank}/{world}] rows {list(mesh.local_rows)} ok", flush=True)
+
+
+def phase_two_processes(al, reads) -> dict:
+    """11c: 2 ranks x (2 x 2) cuda:0 cells over Gloo == one 4 x 2 grid."""
+    import multiprocessing as mp
+    import socket
+    import tempfile
+
+    from mappy_rs_tpu_torch.index.share import save_index_dir
+    from mappy_rs_tpu_torch.parallel.mesh import make_mesh
+    from mappy_rs_tpu_torch.utils.seqcodes import encode
+
+    L = 1024
+    codes = np.full((N_MH_READS, L), 4, np.uint8)
+    lens = np.zeros(N_MH_READS, np.int32)
+    for i, r in enumerate(reads[:N_MH_READS]):
+        c = encode(r)
+        codes[i, : len(c)] = c
+        lens[i] = len(c)
+    t0 = time.perf_counter()
+    one = run_decision_step(make_mesh(4, 2, ["cuda:0"] * 8), al._index,
+                            al._map_opt, codes, lens)
+    t_one = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mh_") as d:
+        idx_dir = os.path.join(d, "idx")
+        batch_path = os.path.join(d, "batch.npz")
+        out_path = os.path.join(d, "two.npz")
+        save_index_dir(al._index, idx_dir)
+        np.savez(batch_path, codes=codes, lens=lens)
+        sock = socket.socket()
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        ctx = mp.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_mh_child, args=(
+            r, 2, port, idx_dir, al._map_opt, batch_path, out_path))
+            for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(MH_TIMEOUT)
+        finally:
+            hung = [p.pid for p in procs if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        t_two = time.perf_counter() - t0
+        exits = [p.exitcode for p in procs]
+        if hung or any(c != 0 for c in exits):
+            raise AssertionError(f"two-process run: exit codes {exits}, "
+                                 f"killed after {MH_TIMEOUT} s: {hung}")
+        two = dict(np.load(out_path))
+    diff = sorted(k for k in set(one) | set(two)
+                  if k not in one or k not in two
+                  or not np.array_equal(one[k], two[k]))
+    log(f"two processes (Gloo, 2 x (2 x 2) cuda:0 cells): {N_MH_READS} "
+        f"reads in {t_two:.1f} s with start-up; one process (4 x 2): "
+        f"{t_one:.1f} s; fields differing: {diff}")
+    if diff:
+        raise AssertionError(f"two-process results differ: {diff}")
+    return {"reads": N_MH_READS, "two_process_s": t_two, "one_process_s": t_one,
+            "differ": diff}
+
+
 # -------------------------------------------------------------- phase 10
 def card_pids() -> list:
     """PIDs of the processes holding a context on the card, one per
@@ -1527,7 +1811,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     import mappy_rs_tpu_torch
-    from mappy_rs_tpu_torch.utils.simulate import random_genome, simulate
+    from mappy_rs_tpu_torch.utils.simulate import (random_genome,
+                                                   simulate_with_truth)
 
     t_start = time.perf_counter()
     info = phase_build()
@@ -1535,7 +1820,8 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     genome = random_genome(rng, GENOME_LEN)
-    reads, starts = simulate(rng, genome, N_READS, READ_LEN, ERR)
+    reads, starts, ends, rev = simulate_with_truth(rng, genome, N_READS,
+                                                   READ_LEN, ERR)
     log(f"data: {GENOME_LEN / 1e6:.0f} Mbp genome, {len(reads)} reads "
         f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
@@ -1554,10 +1840,22 @@ def main() -> int:
     log(f"phase 9: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     procs = phase_procs(al, reads, starts, sl["out"], sl["reads_per_s"])
-    host_bt = phase_host_backtrack(al, reads, sl.pop("out"),
+    host_bt = phase_host_backtrack(al, reads, sl["out"],
                                    long_reads.pop("sel"),
                                    long_reads.pop("got"))
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    multi = {"mesh": phase_mesh(al, genome, reads, sl.pop("out"),
+                                sl["reads_per_s"]),
+             "decisions": phase_decisions(al, reads, ends, rev),
+             "two_processes": phase_two_processes(al, reads)}
+    multi["seconds"] = time.perf_counter() - t0
+    log(f"phase 11: {multi['seconds']:.1f} s")
+    # the main path's launches include phase 11's: K1 under both grids, K3
+    # in decision mode (K2 and K4 do not run there)
+    launches["chain_dp"] += sum(multi["mesh"][g]["launches"]["chain_dp"]
+                                for g in ("sharded", "data_parallel"))
+    launches["extend_dp"] += multi["decisions"]["k3_launches"]
 
     kernels = []
     for name, src, repl in (
@@ -1593,6 +1891,7 @@ def main() -> int:
               "presets": presets,
               "front_end_probes": sl["probes"],
               "process_runtime": procs, "host_backtrack": host_bt,
+              "multi_device": multi,
               "cpu_count": os.cpu_count(),
               "seconds": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)

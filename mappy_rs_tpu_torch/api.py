@@ -16,9 +16,12 @@ lib.rs:388-390) and ``fn_idx_out=`` (.mmi writing, lib.rs:391-394).
 Same classes, constructor kwargs and error strings as the JAX package's
 api.py, plus one kwarg: ``device`` (AlignerConfig.device, default
 "cuda"), where the front end and the index tensors live.  "cuda"
-without a card raises; the port never moves to the CPU quietly.  Not
-ported yet (raise NotImplementedError): ``enable_mesh``,
-``enable_sharding`` and ``map_batch_positions``.
+without a card raises; the port never moves to the CPU quietly.  The
+multi-device entry points ``enable_mesh`` and ``enable_sharding`` (which
+``map_batch_positions`` needs) take one more keyword than the JAX
+package's, ``devices=``: the device of each cell of the grid
+(parallel/mesh.py ``make_mesh``; default n_data * n_index distinct
+cards).
 """
 from __future__ import annotations
 
@@ -45,10 +48,6 @@ from .ops.regions import Region
 from .runtime.batch import AlignmentBatchResultIter, WorkerPool
 
 CIGAR_CHARS = "MIDNSHP=X"
-_MULTI_TODO = (
-    "multi-device mapping (enable_mesh / enable_sharding / "
-    "map_batch_positions) is not ported yet (ROADMAP Queue 1 item 3)"
-)
 
 
 class Strand(enum.Enum):
@@ -536,15 +535,135 @@ class Aligner:
             uniq[s] = self._to_mappings(r)
         return [uniq[s] for s in seqs]
 
-    # --- multi-device (not ported yet) ---------------------------------
-    def enable_mesh(self, n_data: int = 0, n_index: int = 1) -> None:
-        raise NotImplementedError(_MULTI_TODO)
+    # --- multi-device full pipeline (no reference analogue) -----------
+    def enable_mesh(self, n_data: int = 0, n_index: int = 1,
+                    devices=None) -> None:
+        """Run the full-CIGAR `map`/`map_batch` pipeline data-parallel
+        over `n_data` devices (default: all).  The device front end
+        (sketch -> seed -> chain) runs on each "data" row's slice of a
+        batch; with ``n_index > 1`` the key/position tables are
+        additionally SHARDED into key ranges over an "index" axis
+        (nothing reference-sized replicated), merged with an all_gather
+        before chaining.  Host finalization is unchanged, so mappings
+        are the single device's.  `devices` names the grid's devices
+        (parallel/mesh.py make_mesh).  For key-range index sharding in
+        decision mode see :meth:`enable_sharding`."""
+        self._engine.enable_mesh(n_data, n_index, devices)
 
-    def enable_sharding(self, n_data: int = 0, n_index: int = 1) -> None:
-        raise NotImplementedError(_MULTI_TODO)
+    # --- multi-device decision mode (no reference analogue) -----------
+    def enable_sharding(self, n_data: int = 0, n_index: int = 1,
+                        devices=None) -> None:
+        """Shard this aligner across a device grid: reads run
+        data-parallel over `n_data` rows while the minimizer key table
+        is sharded by key range over `n_index` devices per row, with
+        per-shard anchors merged by an all_gather before chaining.
+        `devices` names the grid's devices (parallel/mesh.py make_mesh).
+
+        Enables :meth:`map_batch_positions`, the device-only
+        position/score fast path (readfish-style decisions without
+        CIGARs)."""
+        from .parallel.mesh import (device_shards, make_mesh, rows_of,
+                                    shard_index_by_key_range)
+
+        n_data = rows_of(n_data, n_index, devices)
+        self._mesh = make_mesh(n_data, n_index, devices)
+        self._shards_np = device_shards(
+            shard_index_by_key_range(self._index, n_index))
+        self._shards_dev = None
+        self._sharded_steps: Dict[int, Any] = {}
+        self._n_data = n_data
+        self._n_index = n_index
 
     def map_batch_positions(self, seqs: Sequence[str]) -> List[Optional[dict]]:
-        raise NotImplementedError(_MULTI_TODO)
+        """Device-only mapping decisions for a batch of reads.
+
+        Returns, per read, None (no confident chain) or a dict with
+        ctg / ctg_len / strand (+1/-1) / r_en (approximate reference
+        END of the best chain) / chain_score / ext_score.  Requires
+        :meth:`enable_sharding` first."""
+        from .ops.chain import ChainParams
+        from .ops.extend import ExtendParams
+        from .parallel.mesh import P, build_sharded_map_step
+        from .parallel.multihost import (gather_results, put_global,
+                                         put_global_tree,
+                                         shard_specs_for_index)
+        from .utils.seqcodes import encode
+
+        if getattr(self, "_mesh", None) is None:
+            raise RuntimeError(
+                "Sharding not enabled on this instance. "
+                "Please call `.enable_sharding()`"
+            )
+        codes_list = [encode(s) for s in seqs]
+        max_len = max((len(c) for c in codes_list), default=1)
+        L = 512
+        while L < max_len:
+            L <<= 1
+        B = len(seqs)
+        B_pad = max(((B + self._n_data - 1) // self._n_data) * self._n_data, self._n_data)
+        batch = np.full((B_pad, L), 4, np.uint8)
+        lens = np.zeros(B_pad, np.int32)
+        for i, c in enumerate(codes_list):
+            batch[i, : len(c)] = c
+            lens[i] = len(c)
+
+        step = self._sharded_steps.get(L)
+        if step is None:
+            opt = self._map_opt
+            cp = ChainParams(
+                max_dist_x=opt.max_gap_ref if opt.max_gap_ref >= 0 else opt.max_gap,
+                max_dist_y=opt.max_gap,
+                bw=opt.bw,
+                q_span=self._index.k,
+                chn_pen_gap=opt.chain_gap_scale * 0.01 * self._index.k,
+                chn_pen_skip=opt.chain_skip_scale * 0.01 * self._index.k,
+            )
+            ep = ExtendParams(
+                a=opt.a, b=opt.b, q=opt.q, e=opt.e, q2=opt.q2, e2=opt.e2,
+                sc_ambi=opt.sc_ambi,
+            )
+            step = build_sharded_map_step(
+                self._mesh, self._index.k, self._index.w,
+                max_minimizers=max(64, L // 5),
+                max_anchors=max(128, L // 4),
+                chain_params=cp, ext_params=ep, mid_occ=opt.mid_occ,
+                chain_window=32, ext_window=128,
+            )
+            self._sharded_steps[L] = step
+
+        mesh = self._mesh
+        if self._shards_dev is None:
+            self._shards_dev = put_global_tree(
+                self._shards_np, mesh, shard_specs_for_index())
+        out = gather_results(step(
+            put_global(batch, mesh, P("data", None)),
+            put_global(lens, mesh, P("data")),
+            self._shards_dev,
+        ))
+        cs = out["chain_score"]
+        rid = out["rid"]
+        rev = out["rev"]
+        es = out["ext_score"]
+        end_t = out["ext_end_t"]  # per-contig coordinate
+        res: List[Optional[dict]] = []
+        for i in range(B):
+            if cs[i] < self._map_opt.min_chain_score:
+                res.append(None)
+                continue
+            r = int(rid[i])
+            res.append(
+                {
+                    "ctg": self._index.seq_names[r],
+                    "ctg_len": int(self._index.seq_lens[r]),
+                    "strand": 1 if rev[i] == 0 else -1,
+                    "r_en": int(
+                        min(max(end_t[i], 0), self._index.seq_lens[r])
+                    ),
+                    "chain_score": int(cs[i]),
+                    "ext_score": int(es[i]),
+                }
+            )
+        return res
 
     def setup_signal(self) -> None:
         """Install a SIGINT handler that stops the worker pool.

@@ -32,7 +32,13 @@ the engine through ``map_batch_packed``, ``fe_submit`` / ``fe_collect``
 and ``post_chain_packed``; the packed IPC block is built by a
 ``PackedSink`` (runtime/pack.py) that the native post-chain fills.
 
-Not ported yet: the multi-device front ends.
+Over a device grid (``enable_mesh``, parallel/mesh.py) the front end
+runs row by row, each data row on its slice of the batch:
+``make_dp_front_end`` against the tables replicated on the row's device,
+or, with the key table sharded by key range over the row's "index"
+peers, ``make_sharded_front_end`` (count psum, per-shard expansion,
+anchor all_gather and re-sort, K1).  Everything after the front end is
+the single-device path's, so the Mappings are the same.
 """
 from __future__ import annotations
 
@@ -56,7 +62,8 @@ from ..ops.chain import ChainParams
 from ..ops.chain_kernel import chain_fits, chain_scores_kernel
 from ..ops.extend import ExtendParams
 from ..ops.extend_kernel import extend_dp_device, extend_traceback_device
-from ..ops.lookup import collect_anchors
+from ..ops.lookup import (collect_anchors, expand_anchors, filter_counts,
+                          probe_sorted, sort_merged)
 from ..ops.regions import (
     Region,
     regions_from_compact,
@@ -109,6 +116,23 @@ def _chained_anchors(
     return anchors, f, p
 
 
+def _backtracked(anchors: dict, f, p, *, bt_k: int, bt_cuts: int,
+                 min_cnt: int, min_sc: int):
+    """Chain backtrack (kernel K2) of a chained anchor set: (chains,
+    aux = (rep_len, n_raw))."""
+    chains = backtrack_chains(anchors, f, p, bt_k, bt_cuts, min_cnt, min_sc)
+    return chains, torch.stack([anchors["rep_len"], anchors["n_raw"]])
+
+
+def _anchor_stack(a: dict, f, p):
+    """The anchors with f and p for the host backtrack: (stack [5, B, A],
+    counts [3, B]); see front_end_chain."""
+    meta = ((a["rev"] << 30) | (a["valid"].to(torch.int32) << 29)
+            | (a["span"].clamp(0, 255) << 21) | a["rid"])
+    return (torch.stack([meta, a["rpos"], a["qpos"], f, p]),
+            torch.stack([a["n"], a["n_raw"], a["rep_len"]]))
+
+
 def front_end_bt(codes: torch.Tensor, lens: torch.Tensor, dev: DeviceIndex,
                  *, bt_k: int, bt_cuts: int, min_cnt: int, min_sc: int,
                  **kw):
@@ -125,9 +149,8 @@ def front_end_bt(codes: torch.Tensor, lens: torch.Tensor, dev: DeviceIndex,
     (chains int32 [B, bt_k, 9 + 2*bt_cuts], aux int32 [2, B] =
     (rep_len, n_raw)); n_raw > A marks reads whose seed hits
     overflowed the anchor budget."""
-    anchors, f, p = _chained_anchors(codes, lens, dev, **kw)
-    chains = backtrack_chains(anchors, f, p, bt_k, bt_cuts, min_cnt, min_sc)
-    return chains, torch.stack([anchors["rep_len"], anchors["n_raw"]])
+    return _backtracked(*_chained_anchors(codes, lens, dev, **kw), bt_k=bt_k,
+                        bt_cuts=bt_cuts, min_cnt=min_cnt, min_sc=min_sc)
 
 
 def front_end_chain(codes: torch.Tensor, lens: torch.Tensor,
@@ -139,11 +162,91 @@ def front_end_chain(codes: torch.Tensor, lens: torch.Tensor,
     min(span, 255)<<21 | rid, the layout native backtrack_compact_batch
     reads; counts int32 [3, B] = n, n_raw, rep_len).  Valid anchors
     come first in each row, so the first max(n) columns hold them all."""
-    a, f, p = _chained_anchors(codes, lens, dev, **kw)
-    meta = ((a["rev"] << 30) | (a["valid"].to(torch.int32) << 29)
-            | (a["span"].clamp(0, 255) << 21) | a["rid"])
-    return (torch.stack([meta, a["rpos"], a["qpos"], f, p]),
-            torch.stack([a["n"], a["n_raw"], a["rep_len"]]))
+    return _anchor_stack(*_chained_anchors(codes, lens, dev, **kw))
+
+
+def _sketch_staged(up: dict, k: int, w: int, M: int) -> dict:
+    """sketch_compact of one staged batch (stage_batch's arrays, on one
+    device; HPC batches sketch their compressed codes)."""
+    return sketch_compact(up["codes"], up.get("sk_lens", up["lens"]), k, w, M,
+                          force_inf=up.get("force_inf"),
+                          pos_map=up.get("pos_map"), spans=up.get("spans"))
+
+
+def make_dp_front_end(mesh, index: MinimizerIndex):
+    """Data-parallel front end over a grid of one index peer per row:
+    fe(row, ups, **kw) runs ``front_end_chain`` (``front_end_bt`` when
+    `kw` has the backtrack keywords) on the row's reads, against the
+    lookup tables replicated on the row's device.  `ups` is {device:
+    the row's staged arrays on it}; `kw` are _fe_kwargs'.  Each row
+    computes exactly what the single-device front end computes on its
+    reads."""
+
+    def fe(row: int, ups: dict, **kw):
+        dev = mesh.devices[row, 0]
+        up = dict(ups[dev])
+        codes, lens = up.pop("codes"), up.pop("lens")
+        fn = front_end_bt if "bt_k" in kw else front_end_chain
+        return fn(codes, lens, index.device_index(dev), **up, **kw)
+
+    return fe
+
+
+def make_sharded_front_end(mesh, shards: dict):
+    """Full-CIGAR front end with the key table sharded by key range over
+    each row's "index" peers (`shards`: parallel/mesh.py
+    ``device_shards`` placed by ``put_global``; nothing of the index is
+    replicated).  fe(row, ups, **kw) as make_dp_front_end's, per row:
+
+    sketch; the sorted-key probe of each peer's shard; a psum of the raw
+    counts (a key lies in one shard, so the sum is its global count);
+    the occurrence, rescue and query-repeat filters on the global counts
+    (identically on every peer); each peer's expansion of its own hits
+    at a budget A_loc = max(A // n_index, 128); an all_gather of the
+    anchors, n = min(psum n, A_loc * n_index), n_raw = psum n_raw; the
+    re-sort (invalid slots last); kernel K1; then the anchor stack, or
+    K2 with the backtrack keywords.  The merged anchors are the same on
+    every peer, so the row chains them once, on its first device.  The
+    anchor set is the single-device one but for tie order and the
+    per-shard (not global) truncation when a read overflows its
+    budget."""
+    n_index = mesh.shape["index"]
+    fields = ("rev", "rid", "rpos", "qpos", "span", "valid")
+
+    def fe(row: int, ups: dict, *, k, w, M, A, chain_params, window,
+           mid_occ, q_occ_frac, occ_dist, max_max_occ, **bt):
+        grp = mesh.group(row)
+        A_loc = max(A // n_index, 128)
+        mins = {d: _sketch_staged(up, k, w, M) for d, up in ups.items()}
+        sh = [{n: a.blocks[(row, c)][0] for n, a in shards.items()}
+              for c in range(n_index)]
+        probes = [probe_sorted(mins[d], s["keys"], s["offcnt"], s["n_keys"])
+                  for d, s in zip(grp.devices, sh)]
+        cnt_loc_raw = [torch.where(found, oc[..., 1].to(torch.int64), 0)
+                       for found, oc in probes]
+        cnt_raw = grp.psum(cnt_loc_raw)
+        filt = {d: filter_counts(mins[d], ups[d]["lens"], cnt_raw[d] > 0,
+                                 cnt_raw[d], mid_occ, k, q_occ_frac,
+                                 occ_dist, max_max_occ)
+                for d in grp.distinct}
+        loc = []
+        for c, d in enumerate(grp.devices):
+            found, oc = probes[c]
+            # kept minimizers keep their (single) owning shard's count
+            cnt_loc = torch.where((filt[d][0] > 0) & found, cnt_loc_raw[c], 0)
+            loc.append(expand_anchors(mins[d], ups[d]["lens"], cnt_loc,
+                                      oc[..., 0], sh[c]["pos_rp"], A_loc))
+        d0 = grp.devices[0]
+        g = {n: grp.all_gather([a[n] for a in loc]) for n in fields}
+        an = sort_merged({n: g[n][d0] for n in fields})
+        an["n"] = torch.clamp(grp.psum([a["n"] for a in loc])[d0],
+                              max=A_loc * n_index)
+        an["n_raw"] = grp.psum([a["n_raw"] for a in loc])[d0]
+        an["rep_len"] = filt[d0][1]
+        f, p = chain_scores_kernel(an, chain_params, window)
+        return _backtracked(an, f, p, **bt) if bt else _anchor_stack(an, f, p)
+
+    return fe
 
 
 @dataclass
@@ -196,6 +299,11 @@ class AlignmentEngine:
         # re-runs it on its uploaded inputs (probe_front_end)
         self._probe_shape: Optional[Tuple[int, int, int, int]] = None
         self._probe_dispatch = None
+        # optional device grid (enable_mesh): the front end runs row by
+        # row through _mesh_fe; everything downstream is unchanged
+        self.mesh = None
+        self._mesh_fe = None
+        self._index_shards = None  # enable_mesh(n_index > 1)
         max_gap_ref = opt.max_gap_ref if opt.max_gap_ref >= 0 else opt.max_gap
         self._chain_params = ChainParams(
             max_dist_x=max_gap_ref,
@@ -358,15 +466,55 @@ class AlignmentEngine:
 
     def _bt_enabled(self, A: int) -> bool:
         """Whether a batch of A anchors per read backtracks in kernel K2
-        (cfg.device_backtrack "auto"/"on") or on the host ("off", or a
-        budget over what K2's shared memory holds: backtrack_fits, A <=
-        1,858,560).  The gate is the same on the CPU, so the CPU runs the
-        card's routing.  The JAX package's B*A > 256*1024 gate is a TPU
-        VMEM limit and is not used."""
+        or on the host.  In the JAX package's order: a budget over what
+        K2's shared memory holds (backtrack_fits, A <= 1,858,560) goes
+        to the host; then "on" takes K2 and "off" the host; "auto" takes
+        K2 except under a device grid, whose front ends hand their
+        anchors to the host backtrack as the JAX package's do.  The gate
+        is the same on the CPU, so the CPU runs the card's routing.  The
+        JAX package's B*A > 256*1024 gate is a TPU VMEM limit and is not
+        used."""
         mode = self.cfg.device_backtrack
         if mode not in ("auto", "on", "off"):
             raise ValueError(f"unknown device_backtrack {mode!r}")
-        return mode != "off" and backtrack_fits(A)
+        if not backtrack_fits(A):
+            return False
+        if mode != "auto":
+            return mode == "on"
+        return self.mesh is None
+
+    def enable_mesh(self, n_data: int = 0, n_index: int = 1,
+                    devices=None) -> None:
+        """Run the front end over a (n_data x n_index) device grid
+        (parallel/mesh.py make_mesh; `devices` names the cells' devices,
+        default n_data * n_index distinct cards).  Reads split over the
+        "data" rows; with ``n_index > 1`` the key and position tables are
+        sharded by key range over each row's "index" peers and the
+        replicated tables are never built.  ``n_data <= 0`` takes every
+        device (of `devices`, else every card) over n_index.  The host
+        stages are unchanged, so the Mappings are the single device's
+        (see make_sharded_front_end for the divergences under
+        anchor-budget overflow)."""
+        from ..parallel.mesh import (device_shards, make_mesh, rows_of,
+                                     shard_index_by_key_range)
+        from ..parallel.multihost import put_global_tree, shard_specs_for_index
+
+        self.mesh = make_mesh(rows_of(n_data, n_index, devices), n_index,
+                              devices)
+        self._index_shards = None
+        if n_index > 1:
+            # the lookup tables only: the packed reference stays on the
+            # host for the extension
+            names = ("keys", "offcnt", "n_keys", "pos_rp")
+            sh = device_shards(shard_index_by_key_range(self.index, n_index),
+                               names)
+            specs = shard_specs_for_index()
+            self._index_shards = put_global_tree(
+                sh, self.mesh, {n: specs[n] for n in names})
+            self._mesh_fe = make_sharded_front_end(self.mesh,
+                                                   self._index_shards)
+        else:
+            self._mesh_fe = make_dp_front_end(self.mesh, self.index)
 
     def fe_shapes(self, L: int, a_boost: int = 1, b_real: int = 0):
         """Static device-batch shapes for the L bucket: (B, M, A).
@@ -379,6 +527,9 @@ class AlignmentEngine:
         B = 8 if (
             0 < b_real <= 8 and not self.cfg.single_batch_shape
         ) else full_B
+        if self.mesh is not None:  # the rows split B evenly
+            nd = self.mesh.shape["data"]
+            B = ((B + nd - 1) // nd) * nd
         M = max(64, L // max(w // 2, 1))
         A = max(256, int(L * self.cfg.anchors_per_base))
         A = _pow2_at_least(A) * a_boost
@@ -431,9 +582,6 @@ class AlignmentEngine:
         if not use_bt:
             for name in ("bt_k", "bt_cuts", "min_cnt", "min_sc"):
                 del kw[name]
-        fn = front_end_bt if use_bt else front_end_chain
-        dev = self.dev
-        cuda = self.device.type == "cuda"
         self.metrics.add("fe_batches", 1)
         self.metrics.add("fe_reads", len(codes_sel))
         if not use_bt:
@@ -441,15 +589,65 @@ class AlignmentEngine:
         # chain DP cell updates this dispatch: B*A anchors x window
         self.metrics.add("chain_cells", float(B) * A * kw["window"])
         with self.metrics.timer("front_end"):
-            staged = {n: torch.from_numpy(a) for n, a in host.items()}
-            if cuda:
-                staged = {n: t.pin_memory() for n, t in staged.items()}
-            up = {n: t.to(self.device, non_blocking=True)
-                  for n, t in staged.items()}
-            codes_d, lens_d = up.pop("codes"), up.pop("lens")
-            out, aux = fn(codes_d, lens_d, dev, **up, **kw)
-            done = None
-            if cuda:
+            if self.mesh is None:
+                fn = front_end_bt if use_bt else front_end_chain
+                dev = self.dev
+                staged, up = self._stage_upload(host, [self.device])
+                up = dict(up[self.device])
+                codes_d, lens_d = up.pop("codes"), up.pop("lens")
+
+                def run():
+                    return fn(codes_d, lens_d, dev, **up, **kw)
+
+                handles = self._launch(self.device, run, use_bt, bt_cuts,
+                                       staged)
+            else:
+                # row by row: each data row's slice on the row's devices
+                nd = self.mesh.shape["data"]
+                Bp = B // nd
+                rows = []
+                for r in range(nd):
+                    devs = self.mesh.group(r).distinct
+                    staged, ups = self._stage_upload(
+                        {n: a[r * Bp:(r + 1) * Bp] for n, a in host.items()},
+                        devs)
+                    rows.append((r, ups, staged))
+                handles = [
+                    self._launch(
+                        self.mesh.devices[r, 0],
+                        lambda r=r, ups=ups: self._mesh_fe(r, ups, **kw),
+                        use_bt, bt_cuts, staged)
+                    for r, ups, staged in rows]
+
+                def run():
+                    return [self._mesh_fe(r, ups, **kw) for r, ups, _ in rows]
+        # the last dispatch, for probe_front_end / front_end_roofline
+        self._probe_shape = (B, L, M, A)
+        self._probe_dispatch = run
+        return lens, handles
+
+    @staticmethod
+    def _stage_upload(host: Dict[str, np.ndarray], devices):
+        """Host arrays -> (the staged host tensors, {device: uploads}); on
+        CUDA from pinned memory, without waiting."""
+        staged = {n: torch.from_numpy(np.ascontiguousarray(a))
+                  for n, a in host.items()}
+        if any(d.type == "cuda" for d in devices):
+            staged = {n: t.pin_memory() for n, t in staged.items()}
+        ups = {d: {n: t.to(d, non_blocking=True) for n, t in staged.items()}
+               for d in devices}
+        return tuple(staged.values()), ups
+
+    @staticmethod
+    def _launch(dev: torch.device, run, use_bt: bool, bt_cuts: int,
+                staged) -> _FrontEndHandles:
+        """Run one front end on `dev` and, on CUDA, start copying its
+        result (with K2: the chain table and aux; else the counts) into
+        pinned memory behind an event, without waiting."""
+        out, aux = run()
+        done = None
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
                 aux_h = torch.empty(aux.shape, dtype=aux.dtype,
                                     pin_memory=True)
                 aux_h.copy_(aux, non_blocking=True)
@@ -459,35 +657,36 @@ class AlignmentEngine:
                     out_h.copy_(out, non_blocking=True)
                     out = out_h
                 done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(self.device))
+                done.record(torch.cuda.current_stream(dev))
                 aux = aux_h
-        # the last dispatch, for probe_front_end / front_end_roofline
-        self._probe_shape = (B, L, M, A)
-        self._probe_dispatch = lambda: fn(codes_d, lens_d, dev, **up, **kw)
-        handles = _FrontEndHandles(out, aux, done, tuple(staged.values()),
-                                   None if use_bt else bt_cuts)
-        return lens, handles
+        return _FrontEndHandles(out, aux, done, staged,
+                                None if use_bt else bt_cuts)
 
-    def _fe_collect(self, handles: _FrontEndHandles):
-        """Wait for a dispatched front end; (chains [B, K, 9+2*cuts],
+    def _fe_collect(self, handles):
+        """Wait for a dispatched front end (its handles, or a grid's list
+        of per-row handles, in row order); (chains [B, K, 9+2*cuts],
         rep_len [B], n_raw [B]) as numpy.  For the host backtrack, the
         anchor stack is downloaded trimmed to the widest read's anchors
         and walked by native backtrack_compact_batch, which gives K2's
         chain table."""
-        if handles.done is not None:
-            handles.done.synchronize()
-        aux = handles.aux.numpy()
-        if handles.bt_cuts is None:
-            return handles.out.numpy(), aux[0], aux[1]
+        parts = handles if isinstance(handles, list) else [handles]
+        for h in parts:
+            if h.done is not None:
+                h.done.synchronize()
+        aux = np.concatenate([h.aux.numpy() for h in parts], axis=1)
+        if parts[0].bt_cuts is None:
+            return (np.concatenate([h.out.numpy() for h in parts]),
+                    aux[0], aux[1])
         from .. import native
 
         n, n_raw, rep_len = aux
-        A = handles.out.shape[2]
+        A = parts[0].out.shape[2]
         A_used = min(_pow2_at_least(max(int(n.max(initial=0)), 1)), A)
-        arr = handles.out[:, :, :A_used].cpu().numpy()
+        arr = np.concatenate(
+            [h.out[:, :, :A_used].cpu().numpy() for h in parts], axis=1)
         chains = native.backtrack_compact_batch(
             arr, self.opt.min_cnt, self.opt.min_chain_score,
-            self.cfg.backtrack_k, handles.bt_cuts, self.SEG_LEN,
+            self.cfg.backtrack_k, parts[0].bt_cuts, self.SEG_LEN,
         )
         if chains is None:
             raise RuntimeError(

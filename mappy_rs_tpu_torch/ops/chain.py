@@ -16,6 +16,12 @@ p[i] is the largest j attaining the max, set only when it beats span_i.
 Float arithmetic is float32 with every operation rounded on its own
 (torch runs each op as its own kernel, so nothing is fused into an
 FMA); the CUDA kernel is compiled without contraction to match.
+
+``chain_scores_block`` is the JAX package's block formulation of the
+same recurrence (its ops/chain.py ``chain_scores_block``), which decision
+mode (parallel/mesh.py ``build_sharded_map_step``) chains with: anchor
+blocks of C, predecessors [1, 2C) back.  It is an XLA computation there,
+not a Pallas kernel, so it stays plain torch here.
 """
 from __future__ import annotations
 
@@ -141,3 +147,104 @@ def chain_scores(anchors: dict, params: ChainParams, window: int = 128):
         f_pad[:, i + H] = torch.where(valid_i, f_i, NEG_INF)
         p_out[:, i] = torch.where(take & valid_i, i - H + arg, -1)
     return f_pad[:, H:].contiguous(), p_out
+
+
+def _pair_scores_grid(cur: dict, win: dict, p: ChainParams) -> torch.Tensor:
+    """comput_sc with broadcasting: cur fields [..., 1, C] against win
+    fields [..., 2C, 1] (any mutually broadcastable shapes)."""
+    dq = cur["qpos"] - win["qpos"]
+    dr = cur["rpos"] - win["rpos"]
+    ok = (
+        (cur["rev"] == win["rev"])
+        & (cur["rid"] == win["rid"])
+        & win["valid"]
+        & cur["valid"]
+        & (dq > 0)
+        & (dq <= p.max_dist_x)
+        & (dq <= p.max_dist_y)
+        & (dr > 0)
+        & (dr <= p.max_dist_x)
+    )
+    dd = (dr - dq).abs()
+    ok = ok & (dd <= p.bw)
+    dg = torch.minimum(dr, dq)
+    span_j = win["span"]
+    sc = torch.minimum(dg, span_j)
+    pen = _gap_pen(dr, dq, dd, dg, p)
+    sc = torch.where((dd != 0) | (dg > span_j), sc - pen, sc)
+    return torch.where(ok, sc, NEG_INF)
+
+
+def chain_scores_block(anchors: dict, params: ChainParams, block: int = 32):
+    """Block max-plus chaining DP over sorted [B, A] anchors.
+
+    The sequential dimension is anchor blocks of C = `block`: every
+    pairwise edge score of a block against its window (the previous
+    block and itself, 2C anchors) is computed at once as a
+    [n_blocks, B, 2C, C] grid; each block then takes the previous
+    block's contribution as one max-plus product and closes its
+    in-block dependencies with C-1 Bellman rounds.  p[i] is the
+    largest j of the window with f[j] + sc(j, i) == f[i], -1 where
+    f[i] is the anchor's own span.  Without a "span" field every
+    anchor spans ``params.q_span``.  Returns int32 f, p [B, A]."""
+    rpos = anchors["rpos"]
+    B, A = rpos.shape
+    dev = rpos.device
+    C = block
+    NB = (A + C - 1) // C
+    A_pad = NB * C
+    span = anchors.get("span")
+    if span is None:
+        span = torch.full_like(rpos, params.q_span)
+
+    def blocks_of(x, fill):
+        """[B, A] -> cur [NB, B, C] and win [NB, B, 2C] (the previous
+        block, then the block itself)."""
+        xp = torch.cat([
+            torch.full((B, C), fill, dtype=x.dtype, device=dev), x,
+            torch.full((B, A_pad - A), fill, dtype=x.dtype, device=dev),
+        ], dim=1)
+        cur = xp[:, C:].reshape(B, NB, C).movedim(1, 0)
+        prev = xp[:, :A_pad].reshape(B, NB, C).movedim(1, 0)
+        return cur, torch.cat([prev, cur], dim=2)
+
+    cur_f, win_f = {}, {}
+    for name, x in (("rev", anchors["rev"]), ("rid", anchors["rid"]),
+                    ("rpos", rpos), ("qpos", anchors["qpos"]),
+                    ("span", span)):
+        cur_f[name], win_f[name] = blocks_of(x.to(torch.int32), 0)
+    cur_f["valid"], win_f["valid"] = blocks_of(anchors["valid"], False)
+    # edge grid [NB, B, 2C, C]: rows = window anchors, columns = block
+    E = _pair_scores_grid(
+        {k: v[:, :, None, :] for k, v in cur_f.items()},
+        {k: v[:, :, :, None] for k, v in win_f.items()},
+        params,
+    )
+    init = torch.where(cur_f["valid"], cur_f["span"], NEG_INF)
+    rows = torch.arange(2 * C, dtype=torch.int32, device=dev)[None, :, None]
+    f_prev = torch.full((B, C), NEG_INF, dtype=torch.int32, device=dev)
+    f_blocks, p_blocks = [], []
+    for b in range(NB):
+        E_b = E[b]
+        ok = E_b > NEG_INF
+        prev_tot = torch.where(ok[:, :C], f_prev[:, :, None] + E_b[:, :C],
+                               NEG_INF).amax(dim=1)
+        F = torch.maximum(init[b], prev_tot)
+        M, okM = E_b[:, C:], ok[:, C:]
+        for _ in range(C - 1):
+            hop = torch.where(okM, F[:, :, None] + M, NEG_INF).amax(dim=1)
+            F = torch.maximum(F, hop)
+        # predecessor: the largest window row reaching F
+        f_win = torch.cat([f_prev, F], dim=1)
+        tot = torch.where(ok, f_win[:, :, None] + E_b, NEG_INF)
+        hit = (tot == F[:, None, :]) & (F[:, None, :] > cur_f["span"][b][:, None, :])
+        r = torch.where(hit, rows, -1).amax(dim=1)
+        p_blocks.append(torch.where(r >= 0, b * C - C + r, -1))
+        f_blocks.append(F)
+        f_prev = F
+    f = torch.cat(f_blocks, dim=1)[:, :A]
+    p = torch.cat(p_blocks, dim=1)[:, :A]
+    valid = anchors["valid"]
+    f = torch.where(valid, f, NEG_INF)
+    p = torch.where(valid & (p < A), p, -1)
+    return f.to(torch.int32), p.to(torch.int32)

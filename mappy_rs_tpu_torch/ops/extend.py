@@ -107,9 +107,12 @@ def extend_dp(
     g_sc = best_sc.clone()
     g_j = best_i.clone()
     end_sc = best_sc.clone()
-    dirs = torch.empty((S, J, W), dtype=torch.uint8, device=dev)
+    # past the last job's end cell (diagonal qlen + tlen - 2) no lane is
+    # a cell: the trackers stay, the direction bytes are 0
+    S_run = min(S, max(int((qlen + tlen - 1).max()), 0)) if J else 0
+    dirs = torch.zeros((S, J, W), dtype=torch.uint8, device=dev)
     lo1 = lo2 = 0  # band offsets of diagonals s-1 and s-2
-    for s in range(S):
+    for s in range(S_run):
         lo = max(s // 2 - W // 2 + 1, 0)
         delta1 = lo - lo1  # 0/1: shift against diagonal s-1
         delta2 = lo - lo2  # 0/1/2: shift against diagonal s-2

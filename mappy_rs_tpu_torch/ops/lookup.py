@@ -23,6 +23,12 @@ Both hash-probe layouts of index/index.py are probed: one word (keys
 of at most 31 bits) and two words (keys of 32 to 62 bits, k >= 16).
 Everything runs as static-shape tensor ops: no host sync between the
 upload and the chain table's download.
+
+A key-range shard of the multi-device paths (parallel/mesh.py) is no
+hash table but a sorted key array padded with KEY_MAX: ``probe_sorted``
+binary-searches it (the JAX package's ``probe_index(..., keys32=False)``
+over its two-word sorted layout), and ``sort_merged`` re-sorts the
+anchors that the shards of one data row gathered.
 """
 from __future__ import annotations
 
@@ -33,7 +39,8 @@ from ..index.index import HASH_MIX, HASH_MIX2, DeviceIndex
 #: mm_seed_select's MAX_MAX_HIGH_OCC — cap on rescued seeds per gap
 MAX_HIGH_OCC_PER_GAP = 128
 _BIG = 0x7FFFFFFF
-_KEY_MAX = (1 << 63) - 1  # above every key and every invalid-slot key
+#: above every key and every invalid-slot key; pads key-range shards
+KEY_MAX = (1 << 63) - 1
 
 
 def _excl_cummax(x: torch.Tensor) -> torch.Tensor:
@@ -197,7 +204,7 @@ def filter_counts(mins, qlens, found, cnt_raw, mid_occ, span,
         # invalid slots sort last, apart from every key (a 32-bit key
         # can equal the narrow sentinel), as the JAX package's
         # (0xFFFFFFFF, 0xFFFFFFFF) does
-        vkey = torch.where(slot_valid, mins["key"], _KEY_MAX)
+        vkey = torch.where(slot_valid, mins["key"], KEY_MAX)
         s_key, s_idx = torch.sort(vkey, dim=1, stable=True)
         first = torch.cat(
             [torch.ones_like(s_key[:, :1], dtype=torch.bool),
@@ -270,6 +277,19 @@ def expand_anchors(mins, qlens, cnt, off, pos_rp, max_anchors):
     }
 
 
+def _collect(mins, qlens, found, oc, pos_rp, mid_occ, max_anchors, span,
+             q_occ_frac, occ_dist, max_max_occ):
+    """filter_counts -> expand_anchors on a probe's (found, oc)."""
+    cnt_raw = torch.where(found, oc[..., 1].to(torch.int64), 0)
+    cnt, rep_len = filter_counts(
+        mins, qlens, found, cnt_raw, mid_occ, span,
+        q_occ_frac, occ_dist, max_max_occ,
+    )
+    out = expand_anchors(mins, qlens, cnt, oc[..., 0], pos_rp, max_anchors)
+    out["rep_len"] = rep_len
+    return out
+
+
 def collect_anchors(mins: dict, qlens: torch.Tensor, dev: DeviceIndex,
                     mid_occ: int, max_anchors: int, span: int,
                     q_occ_frac: float = 0.0, occ_dist: int = 0,
@@ -279,12 +299,53 @@ def collect_anchors(mins: dict, qlens: torch.Tensor, dev: DeviceIndex,
 
     Returns dict with [B, A] rev/rid/rpos/qpos/span (int32), valid
     (bool), and n / n_raw / rep_len [B] int32."""
-    found, oc = probe_index(mins, dev)
-    cnt_raw = torch.where(found, oc[..., 1].to(torch.int64), 0)
-    cnt, rep_len = filter_counts(
-        mins, qlens, found, cnt_raw, mid_occ, span,
-        q_occ_frac, occ_dist, max_max_occ,
-    )
-    out = expand_anchors(mins, qlens, cnt, oc[..., 0], dev.pos_rp, max_anchors)
-    out["rep_len"] = rep_len
+    return _collect(mins, qlens, *probe_index(mins, dev), dev.pos_rp, mid_occ,
+                    max_anchors, span, q_occ_frac, occ_dist, max_max_occ)
+
+
+def probe_sorted(mins: dict, keys: torch.Tensor, offcnt: torch.Tensor,
+                 n_keys):
+    """Match query minimizers against a sorted key array: a key-range
+    shard's int64 `keys` [n_pad] (ascending, padded with KEY_MAX), its
+    `offcnt` [n_pad, 2] and its key count `n_keys`.  A lower-bound
+    binary search per minimizer, as the JAX package's
+    ``_lower_bound_2key``; returns (found [B, M] bool, oc [B, M, 2]) as
+    ``probe_index`` does (oc rows are garbage where ~found)."""
+    q = mins["key"]
+    n_pad = keys.shape[0]
+    idx = torch.searchsorted(keys, q.contiguous())
+    idx_c = torch.clamp(idx, max=n_pad - 1)
+    found = (idx < n_keys) & (keys[idx_c] == q) & (mins["pos"] >= 0)
+    return found, offcnt[idx_c]
+
+
+def collect_anchors_sorted(mins: dict, qlens: torch.Tensor, shard: dict,
+                           mid_occ: int, max_anchors: int, span: int):
+    """collect_anchors against one key-range shard (``keys``,
+    ``offcnt``, ``n_keys``, ``pos_rp`` of parallel/mesh.py
+    ``device_shards``): probe_sorted -> filter_counts on the shard's own
+    counts (a minimizer's key lies in one shard only) -> expand_anchors
+    into shard-local positions."""
+    found, oc = probe_sorted(mins, shard["keys"], shard["offcnt"],
+                             shard["n_keys"])
+    return _collect(mins, qlens, found, oc, shard["pos_rp"], mid_occ,
+                    max_anchors, span, 0.0, 0, 0)
+
+
+def sort_merged(gathered: dict) -> dict:
+    """One data row's anchors gathered from its key-range shards
+    ([n_index, B, A_loc] per field: rev, rid, rpos, qpos, valid and
+    optionally span) as one [B, n_index * A_loc] set, each read's
+    shards in order, re-sorted by (valid-last, rev, rid, rpos, qpos).
+    As in the JAX package, ``rev`` comes back as the sort key: 2 on
+    invalid slots."""
+    flat = {k: v.movedim(0, 1).reshape(v.shape[1], -1)
+            for k, v in gathered.items()}
+    valid = flat["valid"]
+    sort_first = torch.where(valid, flat["rev"], 2).to(torch.int64)
+    packed = ((sort_first << 61) | (flat["rid"].to(torch.int64) << 31)
+              | flat["rpos"].to(torch.int64))
+    order = _stable_order(packed, flat["qpos"])
+    out = {k: torch.gather(v, 1, order) for k, v in flat.items()}
+    out["rev"] = torch.gather(sort_first.to(torch.int32), 1, order)
     return out

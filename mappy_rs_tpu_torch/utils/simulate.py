@@ -17,7 +17,17 @@ def random_genome(rng, n: int) -> str:
 def simulate(rng, genome: str, n: int, length: int, err: float):
     """Nanopore-like reads: i.i.d. substitutions / insertions /
     deletions at `err` (60/20/20 split), half the reads
-    reverse-complemented.  Vectorized (numpy) so large N stays cheap."""
+    reverse-complemented.  Vectorized (numpy) so large N stays cheap.
+    Returns (reads, starts): each read's origin on the genome."""
+    reads, starts, _ends, _rev = simulate_with_truth(rng, genome, n, length, err)
+    return reads, starts
+
+
+def simulate_with_truth(rng, genome: str, n: int, length: int, err: float):
+    """``simulate``, with the rest of each read's truth: (reads, starts,
+    ends, rev), where [start, end) is the genome span the read covers
+    and rev marks the reverse-complemented reads.  The same draws as
+    ``simulate``: the reads are the same for the same rng state."""
     g = np.frombuffer(genome.encode(), np.uint8)
     W = length + 64  # template window: deletions consume extra chars
     starts = rng.integers(0, len(genome) - W, n)
@@ -37,7 +47,7 @@ def simulate(rng, genome: str, n: int, length: int, err: float):
     for a, b in zip(b"ACGT", b"TGCA"):
         comp[a] = b
     rc = rng.random(n) < 0.5
-    reads = []
+    reads, ends = [], []
     cap = length + 24  # keep every read in one device bucket
     for i in range(n):
         keep = ~dele[i]  # ins implies keep (bands are disjoint)
@@ -49,12 +59,20 @@ def simulate(rng, genome: str, n: int, length: int, err: float):
             at = np.cumsum(keep)[ins[i]]
             out = np.insert(base, at, insertions)
         else:
+            at = np.zeros(0, np.int64)
             out = base
         out = out[:cap]
+        # the last kept template char inside the cap: kept char r lands
+        # at r + (insertions before it)
+        where = np.arange(len(base)) + np.searchsorted(at, np.arange(len(base)),
+                                                       side="right")
+        last = int(np.nonzero(where < cap)[0][-1]) if len(base) else -1
+        ends.append(int(starts[i]) + int(np.nonzero(keep)[0][last]) + 1
+                    if last >= 0 else int(starts[i]))
         if rc[i]:
             out = comp[out[::-1]]
         reads.append(out.tobytes().decode())
-    return reads, [int(s) for s in starts]
+    return reads, [int(s) for s in starts], ends, [bool(x) for x in rc]
 
 
 def simulate_hpc_noise(rng, genome: str, n: int, length: int, sub: float):

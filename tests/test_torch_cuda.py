@@ -420,3 +420,59 @@ def test_process_runtime_on_card_matches_threads(cuda, topology):
     finally:
         al.enable_threading(0)
     assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_data,n_index", [(4, 1), (2, 2)])
+def test_mesh_on_card_matches_single_device(cuda, n_data, n_index):
+    """enable_mesh on a grid whose cells all lie on the one card (data
+    parallel, then with the key table sharded over 2 peers) == the single
+    device's Mappings, with K1 launched; sharded, the replicated tables
+    are never built."""
+    rng = np.random.default_rng(45)
+    genome = random_genome(rng, 1_000_000)
+    reads, starts = simulate(rng, genome, 256, 1000, 0.05)
+    single = mappy_rs_tpu_torch.Aligner(seq=genome, device="cuda")
+    want = [single._to_mappings(r)
+            for r in single._engine.map_batch(reads, cs=True, md=True)]
+    al = mappy_rs_tpu_torch.Aligner(seq=genome, device="cuda")
+    al.enable_mesh(n_data, n_index=n_index,
+                   devices=["cuda:0"] * (n_data * n_index))
+    n1 = ck.launches
+    got = [al._to_mappings(r)
+           for r in al._engine.map_batch(reads, cs=True, md=True)]
+    assert got == want
+    assert ck.launches > n1
+    if n_index > 1:
+        assert al._engine.index._devices == {}
+    assert sum(1 for ms, s in zip(got, starts)
+               if ms and abs(ms[0].target_start - s) < 100) >= 250
+
+
+@pytest.mark.cuda
+def test_decision_mode_on_card_matches_cpu(cuda, tmp_path):
+    """enable_sharding(2, 2) with every cell on the card: K3 extends, and
+    the decisions equal the port's on a grid of CPU cells."""
+    rng = np.random.default_rng(47)
+    ctgs = [random_genome(rng, n) for n in (300_000, 500_000, 200_000)]
+    fa = str(tmp_path / "g.fa")
+    with open(fa, "w") as fh:
+        for i, c in enumerate(ctgs):
+            fh.write(f">c{i}\n{c}\n")
+    reads, want = [], []
+    for i in range(96):
+        ci = i % len(ctgs)
+        r, (s,) = simulate(rng, ctgs[ci], 1, 1000, 0.05)
+        reads.append(r[0])
+        want.append(f"c{ci}")
+    reads.append("ACGT" * 40)
+    gpu = mappy_rs_tpu_torch.Aligner(fa, device="cuda")
+    gpu.enable_sharding(2, 2, devices=["cuda:0"] * 4)
+    cpu = mappy_rs_tpu_torch.Aligner(fa, device="cpu")
+    cpu.enable_sharding(2, 2, devices=["cpu"] * 4)
+    n3 = ek.launches
+    got = gpu.map_batch_positions(reads)
+    assert ek.launches > n3
+    assert got == cpu.map_batch_positions(reads)
+    assert sum(1 for r, c in zip(got, want) if r and r["ctg"] == c) >= 94
+    assert got[-1] is None

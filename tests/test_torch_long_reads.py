@@ -48,9 +48,10 @@ BUCKETS = AlignerConfig().length_buckets
 
 def _engine(device: str):
     """fe_shapes, _chain_fits and _bt_enabled read only the index's w,
-    the config and the device: an engine without an index is enough."""
+    the config, the device and the device grid (none here): an engine
+    without an index is enough."""
     return SimpleNamespace(index=SimpleNamespace(w=10), cfg=AlignerConfig(),
-                           device=torch.device(device))
+                           device=torch.device(device), mesh=None)
 
 
 def _to_jax(d):

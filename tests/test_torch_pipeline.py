@@ -6,8 +6,9 @@ On a 2 Mbp random genome made from a seed: the port's fused front end
 kernels in interpret mode), and ``Aligner(seq=..., device="cpu")``
 gives ``mappy_rs_tpu.Aligner(seq=...)``'s Mappings field for field.
 Also: the reference's error strings, the explicit device (no silent
-CPU fallback), the NotImplementedError of every unported entry point,
-and that importing the port leaves jax and the JAX package unloaded.
+CPU fallback), the once-unported entry points (multi-device, the device
+extension backend) mapping, and that importing the port leaves jax and
+the JAX package unloaded.
 """
 import os
 import re
@@ -205,16 +206,25 @@ def test_cuda_device_without_card_raises(monkeypatch):
 
 
 def test_unported_entry_points_raise(data, aligners):
+    """The entry points that raised NotImplementedError before their
+    port now map: decision mode (enable_sharding + map_batch_positions)
+    and the full-CIGAR grid (enable_mesh), each on a grid of CPU cells;
+    and the device extension backend, as the host one."""
     genome = data[0]
-    tal, _ = aligners
-    for call in (tal.enable_mesh, tal.enable_sharding,
-                 lambda: tal.map_batch_positions(["ACGT"])):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    # the device extension backend is ported: it maps, as the host one
     al = mappy_rs_tpu_torch.Aligner(seq=genome[:50_000], device="cpu")
     read = genome[1000:2000]
     host = [_fields(m) for m in al.map(read, cs=True)]
+    with pytest.raises(RuntimeError, match="Sharding not enabled"):
+        al.map_batch_positions([read])
+    al.enable_sharding(2, 2, devices=["cpu"] * 4)
+    (dec,) = al.map_batch_positions([read])
+    assert dec["ctg"] == host[0][3] and dec["strand"] == 1
+    assert abs(dec["r_en"] - 2000) < 20 and dec["ext_score"] > 1500
+    grid = mappy_rs_tpu_torch.Aligner(seq=genome[:50_000], device="cpu")
+    grid.enable_mesh(2, n_index=2, devices=["cpu"] * 4)
+    assert [_fields(m) for m in grid.map(read, cs=True)] == host
+    assert grid._engine.index._devices == {}
+    # the device extension backend is ported: it maps, as the host one
     al._engine.cfg.extension_backend = "device"
     al._engine.cfg.post_chain_native = False
     assert [_fields(m) for m in al.map(read, cs=True)] == host
@@ -226,7 +236,8 @@ def test_import_leaves_jax_out():
         "import sys, mappy_rs_tpu_torch, mappy_rs_tpu_torch.models.pipeline, "
         "mappy_rs_tpu_torch.ops.cuda_build, mappy_rs_tpu_torch.runtime.devowner, "
         "mappy_rs_tpu_torch.runtime.procpool, mappy_rs_tpu_torch.runtime.pack, "
-        "mappy_rs_tpu_torch.index.share; "
+        "mappy_rs_tpu_torch.index.share, mappy_rs_tpu_torch.parallel.mesh, "
+        "mappy_rs_tpu_torch.parallel.multihost; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'mappy_rs_tpu' or m.startswith('mappy_rs_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -23,6 +23,7 @@ from mappy_rs_tpu.ops.sketch import sketch_compact as jax_sketch_compact
 
 from mappy_rs_tpu_torch.ops.sketch import INF_WIDE
 from mappy_rs_tpu_torch.utils.seqcodes import encode
+from mappy_rs_tpu_torch.utils.simulate import random_genome
 
 
 def fields(m):
@@ -54,6 +55,17 @@ def drain(al, payload, timeout: float = 300.0) -> dict:
     if err:
         raise err[0]
     return out
+
+
+def write_genome(path, seed: int, lens=(60_000, 110_000, 35_000, 95_000)):
+    """A FASTA of seeded random contigs c0, c1, ... (unique sequence);
+    returns the contigs."""
+    rng = np.random.default_rng(seed)
+    ctgs = [random_genome(rng, n) for n in lens]
+    with open(path, "w") as fh:
+        for i, c in enumerate(ctgs):
+            fh.write(f">c{i}\n{c}\n")
+    return ctgs
 
 
 def read_batch(reads, B: int, L: int):
