@@ -65,17 +65,17 @@ non-zero):
      of the reads map identically on the card and through the CPU
      plain versions.
   9. presets at users' size, each with its own index of phase 4's
-     genome on the card: map-hifi (1,024 x 15 kb reads, 0.5% error),
-     sr (8,192 x 150 bp, 1%), map-pb (1,024 x 10 kb with PacBio-like
+     genome on the card: map-hifi (512 x 15 kb reads, 0.5% error),
+     sr (8,192 x 150 bp, 1%), map-pb (512 x 10 kb with PacBio-like
      homopolymer run-length noise plus 2% substitutions; the index and
-     the reads homopolymer-compressed) and splice (2,048 transcripts of
+     the reads homopolymer-compressed) and splice (1,024 transcripts of
      3-8 exons joined across 80-5,000 bp introns written into a copy of
      the genome, half GT..AG and half CT..AC, 1% error), each through
      enable_threading(4) + map_batch.  Placed (within 100 bp; splice:
      with an N op too): >= 99%, splice >= 90%.  K1 and K2 must launch
      for every preset; on one real batch of each at its most common
      launched shape K1 and K2 == plain (splice: K1's splice branch) and
-     are timed; 32 reads of each map identically on the card and
+     are timed; 16 reads of each map identically on the card and
      through the CPU plain versions; and on 256 map-hifi reads the
      "device" extension backend (K3 + K4 at a=1, b=4, q=6, e=2, q2=26,
      e2=1) gives the host backend's Mappings, cs and MD included.
@@ -109,6 +109,24 @@ non-zero):
      on cuda:0, each with a 2 x 2 grid, joined over Gloo
      (parallel/multihost.py), run the decision step on 512 reads: the
      gathered results == a one-process 4 x 2 grid's, array for array.
+ 12. genome scale: the port's mappy_rs_tpu_torch/tools/gbp_chip.py run at
+     23 contigs of 2^27 bp (3.09 Gbp, the hg38-like model: 52% covered by
+     copies of a 40-element repeat library), built fresh: build_index
+     with its sort on the card, the device tables built there, an
+     Aligner around the index under "device_owner" with 3 CUDA-free
+     children, a warm-up, then 2 passes of 8,000 1 kb reads through
+     map_batch.  It raises unless the card's build (sort and tables)
+     equals the CPU build array for array at k = 15 and 19 on 3 x 2^20 bp
+     of the model, (key, y) strictly increases over the genome-scale
+     index the card sorted, and (a) every index tensor is on the card
+     with tools/hbm_budget.py's count of bytes, (b) K1 and K2 launched in
+     this process during the passes, (c) >= 99% of unique-origin reads
+     are placed (the origin's contig, within 100 bp), (d) 32
+     unique-origin reads map identically through the card engine and a
+     CPU engine on the same tables (the plain K1 / K2), and (e) the host
+     RAM, free temporary space and card memory it needs are there before
+     it starts.  Phase 11 also runs (d) the top-level entry points,
+     entry() and dryrun_multichip(4) with every cell on cuda:0.
 Prints per-kernel times (CUDA events around eager calls, the JSON
 line's `ms`; also as CUDA-graph replays, `graph_ms`, which leave out
 the host's launch cost) beside the plain versions' and each
@@ -1143,13 +1161,15 @@ def phase_long_reads(al, genome) -> dict:
 # --------------------------------------------------------------- phase 9
 #: phase 9: (preset, reads, read length, error, share to place); splice
 #: transcripts are 3-8 exons of 100-300 bp (utils/simulate.py)
+#: (read counts halved from 1,024 / 1,024 / 2,048, and N_CARD_VS_CPU from
+#: 32, to keep the script with phase 12 well inside its time limit)
 PRESET_RUNS = (
-    ("map-hifi", 1024, 15_000, 0.005, 0.99),
+    ("map-hifi", 512, 15_000, 0.005, 0.99),
     ("sr", 8192, 150, 0.01, 0.99),
-    ("map-pb", 1024, 10_000, 0.02, 0.99),
-    ("splice", 2048, 0, 0.01, 0.90),
+    ("map-pb", 512, 10_000, 0.02, 0.99),
+    ("splice", 1024, 0, 0.01, 0.90),
 )
-N_CARD_VS_CPU = 32
+N_CARD_VS_CPU = 16
 N_HIFI_DEVICE = 256
 
 
@@ -1341,7 +1361,7 @@ def phase_presets(genome: str) -> dict:
             if c <= 0:
                 raise AssertionError(f"{preset}: kernel {name} never launched")
 
-        # the card == the CPU plain versions, on 32 reads
+        # the card == the CPU plain versions, on N_CARD_VS_CPU reads
         cpu = AlignmentEngine(eng.index, eng.opt,
                               dataclasses.replace(eng.cfg, device="cpu"))
         t0 = time.perf_counter()
@@ -1660,6 +1680,22 @@ def phase_two_processes(al, reads) -> dict:
             "differ": diff}
 
 
+def phase_entry() -> dict:
+    """11d: the top-level entry points on cuda:0: entry()'s forward step and
+    dryrun_multichip(4) with every cell on cuda:0."""
+    from mappy_rs_tpu_torch.entry import dryrun_multichip, entry
+
+    t0 = time.perf_counter()
+    fn, args = entry()
+    f, _p, _rpos, _rev = fn(*args)
+    if f.device.type != "cuda" or not bool((f.amax(dim=1) > 40).all()):
+        raise AssertionError(f"entry(): chain scores {f.amax(dim=1)}")
+    res = dryrun_multichip(4, devices=["cuda:0"] * 4)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"entry() and dryrun_multichip(4) on cuda:0: {res['seconds']:.1f} s")
+    return res
+
+
 # -------------------------------------------------------------- phase 10
 def card_pids() -> list:
     """PIDs of the processes holding a context on the card, one per
@@ -1804,6 +1840,182 @@ def phase_host_backtrack(al, reads, threaded: dict, long_sel,
     return res
 
 
+# -------------------------------------------------------------- phase 12
+GBP_CONTIGS = 23   # contigs of 2^27 bp: 3.09 Gbp, the hg38-like genome model
+GBP_PROCS = 3      # "device_owner" post-chain children
+GBP_READS = 8000   # reads per timed pass
+GBP_PASSES = 2
+GBP_WARM = 256
+N_GBP_CPU = 32     # unique-origin reads held card vs CPU
+
+
+def check_build_card_vs_cpu() -> dict:
+    """The index build's sort and device tables on the card == the CPU
+    build's, array for array, at k = 15 (one-word table) and k = 19 (two
+    words), on 3 contigs of 2^20 bp of the genome model (repeat-rich:
+    many positions per key)."""
+    import torch
+
+    from mappy_rs_tpu_torch.config import IndexOptions
+    from mappy_rs_tpu_torch.index.build import build_index
+    from mappy_rs_tpu_torch.tools import gbp_chip as gc
+
+    model = gc.GenomeModel(n_contig=3, contig_bits=20)
+    buf, _, _ = gc.build_genome(np.random.default_rng(gc.SEED), model)
+    C = model.contig
+    seqs = [(f"ctg{i:02d}", buf[i * C: (i + 1) * C])
+            for i in range(model.n_contig)]
+    out = {}
+    for k, w in ((15, 10), (19, 19)):
+        c = build_index(seqs, IndexOptions(k=k, w=w), device="cpu")
+        g = build_index(seqs, IndexOptions(k=k, w=w), device="cuda")
+        for name in ("keys", "key_offsets", "positions"):
+            if not np.array_equal(getattr(g, name), getattr(c, name)):
+                raise AssertionError(f"card build, k = {k}: {name} != the "
+                                     "CPU build's")
+        dc, dg = c.device_index("cpu"), g.device_index("cuda")
+        for name in ("offcnt", "pos_rp", "hash_rows", "hash_val"):
+            if not torch.equal(getattr(dg, name).cpu(), getattr(dc, name)):
+                raise AssertionError(f"card tables, k = {k}: {name} != the "
+                                     "CPU build's")
+        if ((dg.n_keys, dg.hash_bits, dg.hash_shift, dg.two_word)
+                != (dc.n_keys, dc.hash_bits, dc.hash_shift, dc.two_word)):
+            raise AssertionError(f"card tables, k = {k}: sizes differ")
+        per_key = np.diff(c.key_offsets.astype(np.int64))
+        out[f"k{k}"] = {"positions": len(c.positions), "keys": len(c.keys),
+                        "keys_with_repeats": int((per_key > 1).sum()),
+                        "max_per_key": int(per_key.max())}
+    log(f"genome scale: card build == CPU build, array for array: {out}")
+    return out
+
+
+def check_sorted_on_card(index) -> None:
+    """O(n) on the card over the host index the card sorted: keys and
+    offsets strictly increase, offsets run from 0 to m, and (key, y)
+    strictly increases across all m positions, so each key's positions
+    are in y order (the stable sort's order) and no position is
+    doubled."""
+    import torch
+
+    from mappy_rs_tpu_torch.index.index import host_int64
+
+    m = len(index.positions)
+    keys = host_int64(index.keys, "cuda")
+    off = host_int64(index.key_offsets, "cuda")
+    if len(off) != len(keys) + 1 or int(off[0]) != 0 or int(off[-1]) != m:
+        raise AssertionError(f"offsets run {int(off[0])}..{int(off[-1])} "
+                             f"over {len(keys)} keys, m = {m}")
+    if not bool((keys[1:] > keys[:-1]).all()):
+        raise AssertionError("keys do not strictly increase")
+    counts = off[1:] - off[:-1]
+    del off
+    if not bool((counts > 0).all()):
+        raise AssertionError("a key holds no position")
+    key_of = torch.repeat_interleave(keys, counts, output_size=m)
+    del keys, counts
+    y = host_int64(index.positions, "cuda")
+    ok = (key_of[1:] > key_of[:-1]) | ((key_of[1:] == key_of[:-1])
+                                       & (y[1:] > y[:-1]))
+    n_bad = int((~ok).sum())
+    del key_of, y, ok
+    torch.cuda.empty_cache()
+    if n_bad:
+        raise AssertionError(f"(key, y) does not increase at {n_bad} of "
+                             f"{m} positions")
+
+
+def phase_genome_scale(n_contig: int = GBP_CONTIGS) -> dict:
+    """12: map against a human-genome-scale index on the card: the run of
+    mappy_rs_tpu_torch/tools/gbp_chip.py, built fresh (no cache)."""
+    import torch
+
+    from mappy_rs_tpu_torch.api import Aligner
+    from mappy_rs_tpu_torch.index.index import DeviceIndex
+    from mappy_rs_tpu_torch.tools import gbp_chip as gc
+    from mappy_rs_tpu_torch.tools import hbm_budget
+
+    t_phase = time.perf_counter()
+    build_check = check_build_card_vs_cpu()
+    torch.cuda.empty_cache()
+    # (e) is the run's preflight: it raises, naming the shortfall, unless
+    # the host RAM, free temporary space and card memory are there
+    r = gc.run(gc.GenomeModel(n_contig=n_contig), procs=GBP_PROCS,
+               n_reads=GBP_READS, n_passes=GBP_PASSES, device="cuda",
+               n_warm=GBP_WARM)
+    rec = r.record
+    rec["build_card_vs_cpu"] = build_check
+    t0 = time.perf_counter()
+    check_sorted_on_card(r.build.index)
+    log(f"genome scale: (key, y) strictly increases over the card-sorted "
+        f"index ({time.perf_counter() - t0:.1f} s)")
+    pre = rec["preflight"]
+    log(f"genome scale: {n_contig} x 2^{rec['genome_model']['contig_bits']} "
+        f"bp = {rec['genome_bp'] / 1e9:.3f} "
+        f"Gbp; needs (GB) "
+        f"{ {k: round(v / 1e9, 2) for k, v in pre['need'].items()} }, "
+        f"there (GB) { {k: round(v / 1e9, 2) for k, v in pre['have'].items()} }")
+    index, al = r.build.index, r.al
+    dev = al._engine.dev
+    # (a) every device table on the card, at hbm_budget's count
+    for name in ("offcnt", "pos_rp", "hash_rows", "hash_val"):
+        t = getattr(dev, name)
+        if t.device.type != "cuda":
+            raise AssertionError(f"index tensor {name} is on {t.device}")
+    m = rec["positions"]
+    want = hbm_budget.count(dev.n_keys, m, dev.hash_bits, dev.two_word)
+    log(f"genome scale: {m} positions, {dev.n_keys} keys (ratio "
+        f"{rec['key_ratio']:.4f}), T = 2^{dev.hash_bits}; device index "
+        f"{ {k: round(v / 1e9, 3) for k, v in rec['device_index_bytes'].items()} }"
+        f" GB; build seconds "
+        f"{ {k: round(v, 1) for k, v in rec['build_s'].items()} }; reads "
+        f"sampled in {rec['sample_reads_s']:.1f} s, spawn "
+        f"{rec['spawn_s']:.1f} s, warm-up {rec['warmup_s']:.1f} s; card peak "
+        f"allocated {rec['card_peak_allocated'] / 1e9:.2f} GB")
+    if rec["device_index_bytes"] != want:
+        raise AssertionError(f"device index bytes {rec['device_index_bytes']}"
+                             f" != hbm_budget {want}")
+    count = rec["counters"]
+    log(f"genome scale: {[round(x, 1) for x in rec['reads_per_s']]} reads/s "
+        f"({GBP_PROCS} children, {2 * GBP_PROCS} proxies); unique-origin "
+        f"{rec['unique_placed']}/{rec['unique']} placed, overall "
+        f"{rec['placed']}/{rec['reads']}; front end "
+        f"{rec['ms_per_batch_pipelined']:.3f} ms per batch pipelined; "
+        f"counters {count}")
+    # (b) K1 and K2 in this process during the passes
+    if count["chain_dp"] <= 0 or count["backtrack_chains"] <= 0:
+        raise AssertionError(f"genome scale: K1/K2 launches {count}")
+    # (c) unique-origin reads placed
+    if rec["unique_placed"] < 0.99 * rec["unique"]:
+        raise AssertionError(f"genome scale: {rec['unique_placed']}/"
+                             f"{rec['unique']} unique-origin reads placed")
+    # (d) the card engine == a CPU engine (the plain K1 / K2) on the same
+    # index: the card's tables copied to the host
+    t0 = time.perf_counter()
+    index._devices["cpu"] = DeviceIndex(
+        offcnt=dev.offcnt.cpu(), pos_rp=dev.pos_rp.cpu(),
+        hash_rows=dev.hash_rows.cpu(), hash_val=dev.hash_val.cpu(),
+        n_keys=dev.n_keys, hash_bits=dev.hash_bits,
+        hash_shift=dev.hash_shift)
+    cpu_al = Aligner._from_index(index, gc.PRESET, "cpu")
+    sel = [i for i in range(rec["reads"]) if r.unique[i]][:N_GBP_CPU]
+    n_diff = 0
+    for i in sel:
+        a = [mapping_fields(x) for x in al.map(r.reads[i], cs=True, MD=True)]
+        c = [mapping_fields(x)
+             for x in cpu_al.map(r.reads[i], cs=True, MD=True)]
+        n_diff += a != c
+    del index._devices["cpu"], cpu_al
+    log(f"genome scale: {len(sel)} unique-origin reads, {n_diff} differ "
+        f"card vs CPU ({time.perf_counter() - t0:.1f} s)")
+    if n_diff or len(sel) < N_GBP_CPU:
+        raise AssertionError(f"genome scale: {n_diff} of {len(sel)} reads "
+                             "differ card vs CPU")
+    rec["card_vs_cpu_differ"] = n_diff
+    rec["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"phase 12: {rec['phase_seconds']:.1f} s")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1848,14 +2060,18 @@ def main() -> int:
     multi = {"mesh": phase_mesh(al, genome, reads, sl.pop("out"),
                                 sl["reads_per_s"]),
              "decisions": phase_decisions(al, reads, ends, rev),
-             "two_processes": phase_two_processes(al, reads)}
+             "two_processes": phase_two_processes(al, reads),
+             "entry": phase_entry()}
     multi["seconds"] = time.perf_counter() - t0
     log(f"phase 11: {multi['seconds']:.1f} s")
-    # the main path's launches include phase 11's: K1 under both grids, K3
-    # in decision mode (K2 and K4 do not run there)
+    gbp = phase_genome_scale()
+    # the main path's launches include phase 11's (K1 under both grids,
+    # K3 in decision mode; K2 and K4 do not run there) and phase 12's
     launches["chain_dp"] += sum(multi["mesh"][g]["launches"]["chain_dp"]
                                 for g in ("sharded", "data_parallel"))
     launches["extend_dp"] += multi["decisions"]["k3_launches"]
+    for name in ("chain_dp", "backtrack_chains"):
+        launches[name] += gbp["counters"][name]
 
     kernels = []
     for name, src, repl in (
@@ -1891,7 +2107,7 @@ def main() -> int:
               "presets": presets,
               "front_end_probes": sl["probes"],
               "process_runtime": procs, "host_backtrack": host_bt,
-              "multi_device": multi,
+              "multi_device": multi, "genome_scale": gbp,
               "cpu_count": os.cpu_count(),
               "seconds": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)

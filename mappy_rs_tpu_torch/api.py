@@ -41,7 +41,7 @@ from .config import (
     set_opt,
 )
 from .index.build import build_index, load_or_build
-from .index.index import resolve_device
+from .index.index import MinimizerIndex, resolve_device
 from .index.mmi import save_mmi
 from .models.pipeline import AlignmentEngine
 from .ops.regions import Region
@@ -311,7 +311,23 @@ class Aligner:
             raise RuntimeError("Did not create or open an index")
         if fn_idx_out is not None:
             save_mmi(str(fn_idx_out), index.to_raw())
+        self._attach(index, idx_opt, map_opt, preset, device)
 
+    @classmethod
+    def _from_index(cls, index: MinimizerIndex, preset: Optional[str] = None,
+                    device: str = "cuda") -> "Aligner":
+        """An Aligner around a prebuilt index with the preset's options
+        (a multi-Gbp genome through ``seq=`` would be one string)."""
+        resolve_device(device)
+        idx_opt, map_opt = set_opt(preset)
+        map_opt.flag |= MM_F_CIGAR
+        al = cls.__new__(cls)
+        al._attach(index, idx_opt, map_opt, preset, device)
+        return al
+
+    def _attach(self, index, idx_opt, map_opt, preset, device) -> None:
+        """The engine and runtime state around `index`: the constructor's
+        last step, shared with _from_index."""
         index.update_map_options(map_opt)
         self._index = index
         self._map_opt = map_opt

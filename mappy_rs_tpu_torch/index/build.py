@@ -5,10 +5,12 @@ the native C++ contig sketcher when the host library builds (the same
 emission engine as the CPU read path, bit-exact with the device
 sketch), else by the torch sketch (ops/sketch.py) in fixed-size
 overlapping chunks on the configured device; only the emitted
-(key, pos, strand) triples return to the host for the sort/unique pass.
+(key, pos, strand) triples return to the host.  The sort/unique pass
+runs with torch on the device the index is built for.
 """
 from __future__ import annotations
 
+import time
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -16,7 +18,7 @@ import torch
 
 from ..config import IndexOptions
 from ..utils.seqcodes import encode, read_fasta_codes
-from .index import MinimizerIndex
+from .index import MinimizerIndex, host_int64, resolve_device
 from .mmi import load_mmi
 
 # chunk size for device sketching of long contigs
@@ -87,6 +89,34 @@ def _sketch_contig_native(codes: np.ndarray, k: int, w: int, is_hpc: bool):
     return np.stack([keys, y >> np.uint64(1), y & np.uint64(1)], axis=1)
 
 
+def sort_positions(keys_all: np.ndarray, y_all: np.ndarray, device="cpu"):
+    """(sorted unique keys, key offsets [n + 1], positions) of the
+    sketched (key, y) pairs, all uint64, by one stable torch sort of the
+    keys on `device` (the card for an index built for the card).  A
+    stable sort by key alone == lexsort((y, key)): rows are appended in
+    (rid, pos) order and a minimizer position holds one strand, so
+    within equal keys insertion order IS y order.  Keys (< 2^62) and y
+    (rid < 2^31) sort as int64.  Raises where the device cannot hold
+    the sort: there is no other route."""
+    dev = resolve_device(device)
+    k_sorted, order = torch.sort(host_int64(keys_all, dev), stable=True)
+    if len(k_sorted) and int(k_sorted[0]) < 0:
+        raise ValueError("minimizer keys of 64 bits: at most 62 fit")
+    positions = host_int64(y_all, dev)[order]
+    del order
+    first = torch.ones(len(k_sorted), dtype=torch.bool, device=dev)
+    torch.ne(k_sorted[1:], k_sorted[:-1], out=first[1:])
+    first = torch.nonzero(first).squeeze(1)
+    uniq = k_sorted[first]
+    del k_sorted
+    offsets = torch.cat([first, first.new_tensor([len(keys_all)])])
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        return t.cpu().numpy().view(np.uint64)
+
+    return host(uniq), host(offsets), host(positions)
+
+
 def build_index(
     seqs: Sequence[Tuple[str, str]],
     opts: IndexOptions | None = None,
@@ -97,7 +127,9 @@ def build_index(
 
     ``n_threads`` parallelizes native contig sketching across host
     threads (the C call releases the GIL); 0 = one per CPU.  ``device``
-    is where the torch sketch runs when the native sketcher is absent.
+    is where the positions are sorted (sort_positions), and where the
+    torch sketch runs when the native sketcher is absent.  The index's
+    build_seconds holds the seconds of the sketch and of the sort.
     """
     opts = opts or IndexOptions()
     is_hpc = bool(opts.flag & 0x1)  # MM_I_HPC
@@ -114,14 +146,19 @@ def build_index(
         if len(codes) >= k:
             jobs.append((rid, codes))
 
-    def _sketch_one(codes: np.ndarray) -> np.ndarray:
+    def _sketch_one(job: Tuple[int, np.ndarray]):
+        """(keys, y = rid << 32 | pos << 1 | strand) of one contig."""
+        rid, codes = job
         rows = _sketch_contig_native(codes, k, w, is_hpc)
         if rows is None:
             rows = _sketch_contig_device(codes, k, w, device, is_hpc)
-        return rows
+        return (np.ascontiguousarray(rows[:, 0]),
+                (np.uint64(rid) << np.uint64(32))
+                | (rows[:, 1] << np.uint64(1)) | rows[:, 2])
 
     from .. import native as _native
 
+    t_sketch = time.perf_counter()
     if n_threads <= 0:
         import os
 
@@ -130,39 +167,23 @@ def build_index(
         from concurrent.futures import ThreadPoolExecutor
 
         with ThreadPoolExecutor(max_workers=n_threads) as ex:
-            all_rows = list(ex.map(lambda j: _sketch_one(j[1]), jobs))
+            parts = list(ex.map(_sketch_one, jobs))
     else:
-        all_rows = [_sketch_one(c) for _, c in jobs]
-    key_parts: List[np.ndarray] = []
-    y_parts: List[np.ndarray] = []
-    for (rid, _), rows in zip(jobs, all_rows):
-        if len(rows):
-            key_parts.append(np.ascontiguousarray(rows[:, 0]))
-            y_parts.append(
-                (np.uint64(rid) << np.uint64(32))
-                | (rows[:, 1] << np.uint64(1))
-                | rows[:, 2]
-            )
+        parts = [_sketch_one(j) for j in jobs]
+    parts = [p for p in parts if len(p[0])]
 
-    if key_parts:
-        keys_all = np.concatenate(key_parts)
-        y_all = np.concatenate(y_parts)
-        # stable sort by key only == lexsort((y, key)): rows are
-        # appended in (rid, pos) order and a minimizer position holds
-        # one strand, so within equal keys insertion order IS y order
-        order = np.argsort(keys_all, kind="stable")
-        keys_all = keys_all[order]
-        positions = y_all[order]
-        mask = np.empty(len(keys_all), bool)
-        mask[0] = True
-        np.not_equal(keys_all[1:], keys_all[:-1], out=mask[1:])
-        first = np.flatnonzero(mask)
-        uniq = keys_all[first]
-        offsets = np.concatenate([first, [len(keys_all)]]).astype(np.uint64)
+    t_sort = time.perf_counter()
+    if parts:
+        keys_all = np.concatenate([p[0] for p in parts])
+        y_all = np.concatenate([p[1] for p in parts])
+        del parts
+        uniq, offsets, positions = sort_positions(keys_all, y_all, device)
+        del keys_all, y_all
     else:
         uniq = np.empty(0, np.uint64)
         offsets = np.zeros(1, np.uint64)
         positions = np.empty(0, np.uint64)
+    t_end = time.perf_counter()
 
     return MinimizerIndex(
         k=k,
@@ -175,6 +196,7 @@ def build_index(
         key_offsets=offsets,
         positions=positions,
         ref_codes=np.concatenate(all_codes) if all_codes else np.empty(0, np.uint8),
+        build_seconds={"sketch": t_sort - t_sketch, "sort": t_end - t_sort},
     )
 
 

@@ -3,8 +3,8 @@
 Host side: the sorted unique minimizer keys, per-key position offsets
 and the packed position array (numpy), exactly as the JAX package
 keeps them.  Device side (``DeviceIndex``): the flat lookup tables the
-front end gathers from, built by ``_build_device`` in numpy and
-uploaded once as torch tensors on the configured device.
+front end gathers from, built by ``_build_device`` with torch on the
+configured device from one upload of the host arrays.
 
 Two hash-probe layouts, chosen by the widest key as in the JAX
 package: one word (int32 slots) for keys of at most 31 bits, two words
@@ -20,6 +20,8 @@ Also covers:
 from __future__ import annotations
 
 import threading
+import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -89,6 +91,36 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def mix32(key: torch.Tensor, two_word: bool) -> torch.Tensor:
+    """The hash-probe tables' 32-bit mix of int64 keys, as int64 in
+    [0, 2^32): fib_mix(lo32) for one word, fib_mix(lo32 ^
+    mix2(key >> 31)) for two (the JAX package's uint32 arithmetic).
+    The table's slot is mix32(key) >> hash_shift."""
+    if two_word:
+        up = (key >> 31) & 0xFFFFFFFF
+        key = key ^ _mul32(up, int(HASH_MIX2))
+    return _mul32(key & 0xFFFFFFFF, int(HASH_MIX))
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32): the uint32 multiply,
+    in 16-bit halves so no int64 product overflows."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & 0xFFFFFFFF
+
+
+def host_int64(a: np.ndarray, device) -> torch.Tensor:
+    """A host integer array (uint64 values under 2^63) as an int64
+    tensor on `device`.  Read-only arrays (the memory maps of
+    index/share.py) are taken as they are: the tensor is only read,
+    copied to the card or by the ops that take it."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int64))
+    return t.to(device)
+
+
 @dataclass
 class MinimizerIndex:
     """Host+device minimizer index."""
@@ -104,6 +136,9 @@ class MinimizerIndex:
     positions: np.ndarray  # uint64 [m]: rid<<32 | pos_end<<1 | strand
     ref_codes: np.ndarray  # uint8 [sum_len] 0..4
     _devices: Dict[str, DeviceIndex] = field(default_factory=dict)
+    #: seconds of this index's build steps: "sketch" and "sort" from
+    #: build_index, "upload" and "tables" from the last device build
+    build_seconds: Dict[str, float] = field(default_factory=dict)
     _name2id: Optional[Dict[str, int]] = None
     _lock: threading.Lock = field(default_factory=threading.Lock)
 
@@ -188,11 +223,14 @@ class MinimizerIndex:
             return d
 
     def _build_device(self, device: torch.device) -> DeviceIndex:
-        """numpy build of the hash-probe tables, then one upload.  The
-        arrays equal the JAX package's DeviceIndex hash1 / hash2
-        layouts (index/index.py _build_device) array for array, with
-        hash_rows as the int32 view of its uint32 words (one word) or
-        as the key its two words encode (two words)."""
+        """The hash-probe tables, built with torch on `device` from the
+        host arrays (uploaded once), with stable sorts: the card builds
+        them when the index is for the card, the CPU in the tests.  The
+        arrays equal the JAX package's DeviceIndex hash1 / hash2 layouts
+        (index/index.py _build_device) array for array, with hash_rows
+        as the int32 view of its uint32 words (one word) or as the key
+        its two words encode (two words).  Records its seconds in
+        build_seconds ("upload", "tables")."""
         n = len(self.keys)
         if len(self.seq_lens) and int(self.seq_lens.max()) >= 2**31:
             raise OverflowError(
@@ -204,55 +242,56 @@ class MinimizerIndex:
             raise ValueError(f"minimizer keys of {eff} bits: at most 62 "
                              "(k <= 31) fit the hash-probe tables")
         two_word = eff > 31
+        t0 = time.perf_counter()
+        keys = host_int64(self.keys, device)
+        offs = host_int64(self.key_offsets, device)
+        pos = host_int64(self.positions, device)
+        t1 = time.perf_counter()
         n_pad = max(((n + 127) // 128) * 128, 128)
-        offcnt = np.zeros((n_pad, 2), np.int32)
-        offcnt[:n, 0] = self.key_offsets[:n].astype(np.int32)
-        offcnt[:n, 1] = (
-            self.key_offsets[1:] - self.key_offsets[:-1]
-        ).astype(np.int32)
+        offcnt = torch.zeros((n_pad, 2), dtype=torch.int32, device=device)
+        offcnt[:n, 0] = offs[:n].to(torch.int32)
+        offcnt[:n, 1] = (offs[1:] - offs[:-1]).to(torch.int32)
+        del offs
         m = len(self.positions)
-        pos_rp = np.zeros((max(m, 8), 2), np.int32)
-        pos_rp[:m, 0] = (self.positions >> np.uint64(32)).astype(np.int32)
-        pos_rp[:m, 1] = (
-            (self.positions & np.uint64(0xFFFFFFFF))
-            .astype(np.uint32)
-            .view(np.int32)
-        )
+        pos_rp = torch.zeros((max(m, 8), 2), dtype=torch.int32, device=device)
+        pos_rp[:m, 0] = (pos >> 32).to(torch.int32)
+        lo = pos & 0xFFFFFFFF
+        pos_rp[:m, 1] = (lo - ((lo >> 31) << 32)).to(torch.int32)  # bitcast
+        del pos, lo
         # slot = fib_mix(key) >> (32 - t); keys are placed in mixed
         # order, the ordered-linear-probing layout is a prefix max, and
         # t grows until every displacement fits the 2-row window
         t = max(int(n / 0.75).bit_length(), 8)
-        if two_word:
-            lo32 = (self.keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-            up = (self.keys >> np.uint64(31)).astype(np.uint32)
-            mixed = (lo32 ^ (up * HASH_MIX2)) * HASH_MIX
-        else:
-            mixed = self.keys.astype(np.uint32) * HASH_MIX
-        i = np.arange(n, dtype=np.int64)
+        mixed = mix32(keys, two_word)
+        i = torch.arange(n, device=device)
         order = slot = i
         while n:
-            h_all = (mixed >> np.uint32(32 - t)).astype(np.int64)
-            order = np.argsort(h_all, kind="stable")
-            h = h_all[order]
-            slot = i + np.maximum.accumulate(h - i)
+            if t > 32:
+                raise ValueError(f"{n} keys need a hash table of more "
+                                 "than 2^32 slots")
+            h, order = torch.sort(mixed >> (32 - t), stable=True)
+            slot = i + torch.cummax(h - i, 0).values
             if int((slot - h).max()) <= 128:
                 break
             t += 1
+        del mixed, i
         T = 1 << t
         rows = T // 128 + 1
-        hval = np.full(rows * 128, n, np.int32)  # sentinel idx = n
-        hval[slot] = order.astype(np.int32)
-        hkeys = np.full(rows * 128, -1, np.int64 if two_word else np.int32)
-        hkeys[slot] = self.keys[order].astype(hkeys.dtype)
-
-        def up(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
+        hval = torch.full((rows * 128,), n, dtype=torch.int32, device=device)
+        hval[slot] = order.to(torch.int32)  # sentinel idx = n
+        hkeys = torch.full((rows * 128,), -1, device=device,
+                           dtype=torch.int64 if two_word else torch.int32)
+        hkeys[slot] = keys[order].to(hkeys.dtype)
+        del keys, order, slot
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        self.build_seconds.update(upload=t1 - t0,
+                                  tables=time.perf_counter() - t1)
         return DeviceIndex(
-            offcnt=up(offcnt),
-            pos_rp=up(pos_rp),
-            hash_rows=up(hkeys.reshape(rows, 128)),
-            hash_val=up(hval[: T + 128]),
+            offcnt=offcnt,
+            pos_rp=pos_rp,
+            hash_rows=hkeys.view(rows, 128),
+            hash_val=hval[: T + 128],
             n_keys=n,
             hash_bits=t,
             hash_shift=32 - t,

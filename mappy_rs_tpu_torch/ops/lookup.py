@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from ..index.index import HASH_MIX, HASH_MIX2, DeviceIndex
+from ..index.index import DeviceIndex, mix32
 
 #: mm_seed_select's MAX_MAX_HIGH_OCC — cap on rescued seeds per gap
 MAX_HIGH_OCC_PER_GAP = 128
@@ -60,14 +60,6 @@ def _stable_order(*keys: torch.Tensor) -> torch.Tensor:
     return perm
 
 
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2^32 for int64 x in [0, 2^32) — the uint32 multiply
-    of the JAX probe, in 16-bit halves so no int64 product overflows."""
-    lo = x * (c & 0xFFFF)
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & 0xFFFFFFFF
-
-
 def probe_index(mins: dict, dev: DeviceIndex):
     """Match query minimizers against the hash-probe table.
 
@@ -80,16 +72,13 @@ def probe_index(mins: dict, dev: DeviceIndex):
     B, M = key.shape
     n_rows = dev.hash_rows.shape[0]
     n_pad = dev.offcnt.shape[0]
+    # two words: the JAX package mixes (lo32, key >> 31) as uint32
+    # words; for the wide sentinel 2^63-1 both are 0xFFFFFFFF, as for
+    # its (0xFFFFFFFF, 0xFFFFFFFF), so even invalid slots probe alike
+    mixed = mix32(key, dev.two_word)
     if dev.two_word:
-        # the JAX package mixes (lo32, key >> 31) as uint32 words; for
-        # the wide sentinel 2^63-1 both are 0xFFFFFFFF, as for its
-        # (0xFFFFFFFF, 0xFFFFFFFF), so even invalid slots probe alike
-        up = (key >> 31) & 0xFFFFFFFF
-        mixed = _mul32((key & 0xFFFFFFFF) ^ _mul32(up, int(HASH_MIX2)),
-                       int(HASH_MIX))
         q = key
     else:
-        mixed = _mul32(key, int(HASH_MIX))
         # the table stores uint32 words as int32: the sentinel key
         # compares as -1, i.e. like the JAX probe it matches empty
         # slots, whose hash_val is the n_keys sentinel

@@ -89,6 +89,8 @@ class DevOwnerMapper(ChildPool):
                     eng.metrics.add("anchor_overflow_retries", len(idxs))
                 B, _M, A = eng.fe_shapes(L, a_boost=boost)
                 for s in range(0, len(idxs), B):
+                    if boost > 1:
+                        eng.metrics.add(f"fe_retry_batches_x{boost}", 1)
                     sel = np.asarray(idxs[s: s + B])
                     pend.append((sel, L, A, eng.fe_submit(
                         [codes[i] for i in sel], L, a_boost=boost)))

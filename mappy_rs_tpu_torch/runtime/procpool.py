@@ -32,6 +32,7 @@ import queue
 import shutil
 import tempfile
 import threading
+import time
 from typing import Callable, Dict, List
 
 
@@ -193,7 +194,10 @@ class ChildPool:
         self._tmp = tempfile.mkdtemp(prefix="mappy_rs_tpu_torch_idx_")
         atexit.register(self.shutdown)
         try:
+            t0 = time.perf_counter()
             save_index_dir(index, self._tmp)
+            #: seconds of writing the children's index directory
+            self.save_seconds = time.perf_counter() - t0
             ctx = mp.get_context("spawn")
             for _ in range(n_procs):
                 parent_c, child_c = ctx.Pipe()

@@ -183,6 +183,35 @@ def test_presets_on_card_match_cpu(cuda, preset):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,w", [(15, 10), (19, 19)])
+def test_index_build_on_card_matches_cpu(cuda, k, w):
+    """build_index's sort and the device tables, built on the card, equal
+    the CPU build's array for array on a repeat-rich genome (the
+    genome-scale model at 3 x 2^20 bp: many positions per key), at a
+    one-word (k = 15) and a two-word (k = 19) table."""
+    from mappy_rs_tpu_torch.config import IndexOptions
+    from mappy_rs_tpu_torch.index.build import build_index
+    from mappy_rs_tpu_torch.tools import gbp_chip
+
+    model = gbp_chip.GenomeModel(n_contig=3, contig_bits=20)
+    buf, _, _ = gbp_chip.build_genome(np.random.default_rng(5), model)
+    C = model.contig
+    seqs = [(f"ctg{i:02d}", buf[i * C: (i + 1) * C])
+            for i in range(model.n_contig)]
+    c = build_index(seqs, IndexOptions(k=k, w=w), device="cpu")
+    g = build_index(seqs, IndexOptions(k=k, w=w), device=cuda)
+    for name in ("keys", "key_offsets", "positions"):
+        np.testing.assert_array_equal(getattr(g, name), getattr(c, name))
+    assert (np.diff(c.key_offsets.astype(np.int64)) > 1).sum() > 1000
+    dc, dg = c.device_index("cpu"), g.device_index(cuda)
+    for name in ("offcnt", "pos_rp", "hash_rows", "hash_val"):
+        assert getattr(dg, name).device.type == "cuda"
+        assert torch.equal(getattr(dg, name).cpu(), getattr(dc, name)), name
+    assert (dg.n_keys, dg.hash_bits, dg.hash_shift, dg.two_word) == (
+        dc.n_keys, dc.hash_bits, dc.hash_shift, dc.two_word)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("A,tile", [(32768, 0), (16384, 0), (131072, 256),
                                     (60000, 200)])
 def test_kernels_match_plain_long_reads(cuda, A, tile):
