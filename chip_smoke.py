@@ -104,7 +104,8 @@ non-zero):
      mode, enable_sharding(2, 2) + map_batch_positions over the 8,192
      reads in batches of 512: >= 99% on the read's strand with r_en
      within 100 bp of its true end, K3 launched, K3 == plain at the
-     batch's shape (J=256, 1024, 1152, W=128), and 256 reads decided as
+     batch's shape (J=256, 1024, 1152, W=128; timed eagerly and as a
+     CUDA-graph replay), and 256 reads decided as
      through the port on a grid of CPU cells; (c) two spawned processes
      on cuda:0, each with a 2 x 2 grid, joined over Gloo
      (parallel/multihost.py), run the decision step on 512 reads: the
@@ -127,6 +128,25 @@ non-zero):
      RAM, free temporary space and card memory it needs are there before
      it starts.  Phase 11 also runs (d) the top-level entry points,
      entry() and dryrun_multichip(4) with every cell on cuda:0.
+ 13. the last tools and the rare paths: (a) the concordance sweep
+     (mappy_rs_tpu_torch/tools/concordance.py) of map-ont, map-hifi,
+     sr, asm5 and splice at N = 1,000 reads each on the card, the device
+     front end (K1 + K2) against the native C++ one: both mapped >= 93%,
+     one side only <= 2%, full hit tuples >= 95% and coordinates >= 98%
+     of both mapped, K1 and K2 launched for each preset; (b) the
+     rare-path constructions (utils/simulate.py: the inversion read and
+     its reverse complement, a junk gap, the five zdrop-split cases, the
+     five RMQ reads, the 64-read fallback batch) through a card Aligner
+     and a CPU Aligner under "host", "device" and "device_dl" (the CPU
+     side in 6 worker processes meanwhile): equal Mappings (cs, MD) and
+     zdrop_splits / inv_rescues; the inversion read split and rescued
+     once, but not under "device_dl" (as the JAX package); under
+     "device" K3 and K4 launched inside the split rounds, on the
+     remainders; (c) tools/trace_front_end.py on a fresh map-ont Aligner
+     of phase 4's genome ([256, 1024], 20 replays) and on 8 map-hifi
+     15 kb reads ([8, 32,768]): busy ms per batch from torch.profiler
+     and from CUDA events, duty, the top device ops, with K1's and K2's
+     kernels among the traced ops.
 Prints per-kernel times (CUDA events around eager calls, the JSON
 line's `ms`; also as CUDA-graph replays, `graph_ms`, which leave out
 the host's launch cost) beside the plain versions' and each
@@ -1537,13 +1557,16 @@ def phase_decisions(al, reads, ends, rev) -> dict:
     torch.cuda.synchronize()
     err = max(max_err(got[k], want[k]) for k in ("dirs",) + BEST_COLS)
     k_ms = cuda_ms(lambda: ek.extend_dp_kernel(q, t, ql, tl, W, params), 20)
+    g_ms = graph_ms(lambda: ek.extend_dp_kernel(q, t, ql, tl, W, params), 20)
     b = bound(J * (QMAX + TMAX) + 8 * J + S * J * W + 24 * J,
               band_cells(ql.cpu().numpy(), tl.cpu().numpy(), W, S)
               * OPS_PER_CELL_K3)
     shape = {"J": J, "QMAX": QMAX, "TMAX": TMAX, "W": W, "max_abs_err": err,
-             "ms": k_ms, "plain_ms": e0.elapsed_time(e1), **b}
+             "ms": k_ms, "graph_ms": g_ms, "plain_ms": e0.elapsed_time(e1),
+             **b}
     log(f"K3 at decision mode's shape (J={J}, {QMAX}, {TMAX}, W={W}): "
-        f"max_abs_err={err}; {k_ms:.4f} ms eager, plain "
+        f"max_abs_err={err}; {k_ms:.4f} ms eager, {g_ms:.4f} ms on the "
+        f"device (graph replay), plain "
         f"{shape['plain_ms']:.1f} ms, bound {b['bound_ms']:.5f} ms "
         f"({b['bound_by']})")
     if err != 0:
@@ -2016,6 +2039,227 @@ def phase_genome_scale(n_contig: int = GBP_CONTIGS) -> dict:
     return rec
 
 
+# -------------------------------------------------------------- phase 13
+N_CONCORDANCE = 1000  # CONCORDANCE.md's N
+TRACE_REPLAYS = 20
+HIFI_TRACE = (15_000, 0.005)  # map-hifi reads of the [8, 32,768] bucket
+RARE_BACKENDS = ("host", "device", "device_dl")
+
+
+def phase_concordance() -> dict:
+    """13a: the port's concordance sweep on the card, with the bars of
+    tests/test_concordance.py; K1 and K2 must launch for every preset."""
+    from mappy_rs_tpu_torch.ops import backtrack as bt
+    from mappy_rs_tpu_torch.ops import chain_kernel as ck
+    from mappy_rs_tpu_torch.tools.concordance import (PRESET_WORKLOADS,
+                                                      run_preset)
+
+    out = {}
+    n = N_CONCORDANCE
+    for preset in PRESET_WORKLOADS:
+        ck.launches = 0
+        bt.launches = 0
+        t0 = time.perf_counter()
+        s = run_preset(preset, n, device="cuda")
+        launches = {"chain_dp": ck.launches, "backtrack_chains": bt.launches}
+        diffs = s.pop("diffs")
+        s.update(launches=launches, seconds=time.perf_counter() - t0)
+        log(f"concordance {preset}: N={n} both mapped {s['both_mapped']}, "
+            f"one side only {s['one_side_only']}, coords eq {s['coords']} "
+            f"({s['coords_pct']:.1f}%), full tuple eq {s['full']} "
+            f"({s['full_pct']:.1f}%); launches {launches}; "
+            f"{s['seconds']:.1f} s")
+        if diffs:
+            log(f"  first diff: {diffs[0]}")
+        if not (s["both_mapped"] >= 0.93 * n and s["one_side_only"] <= 0.02 * n
+                and s["full"] >= 0.95 * s["both_mapped"]
+                and s["coords"] >= 0.98 * s["both_mapped"]):
+            raise AssertionError(f"concordance {preset} below its bars: {s}")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"concordance {preset}: launches {launches}")
+        out[preset] = s
+    return out
+
+
+def rare_constructions() -> list:
+    """(label, preset, extra_flags, genome, reads) of the rare-path reads
+    of tests/test_torch_rare_paths.py and test_torch_rare_reads.py."""
+    from mappy_rs_tpu_torch.config import MM_F_RMQ
+    from mappy_rs_tpu_torch.utils import simulate as sim
+
+    g, r = sim.inversion_case("inversion")
+    jg, jr = sim.inversion_case("junk")
+    out = [("inversion", "map-ont", None, g, [r]),
+           ("inversion_rc", "map-ont", None, g, [sim.revcomp(r)]),
+           ("junk_gap", "map-ont", None, jg, [jr])]
+    for name in sim.ZDROP_CASES:
+        out.append((f"zdrop_{name}", "map-ont", None, *sim.zdrop_case(name)))
+    for preset, flags, case in (("asm5", None, "deletion"),
+                                ("asm5", None, "insertion"),
+                                ("map-ont", None, "deletion"),
+                                ("map-ont", MM_F_RMQ, "deletion"),
+                                ("asm5", None, "junk")):
+        g, r = sim.rmq_case(case)
+        tag = "+MM_F_RMQ" if flags else ""
+        out.append((f"rmq_{preset}{tag}_{case}", preset, flags, g, [r]))
+    out.append(("fallback_batch", "map-ont", None, *sim.fallback_batch()))
+    return out
+
+
+def rare_map(genome, reads, preset, flags, backend: str, device: str):
+    """The reads in one engine batch (cs and MD): their Mapping fields,
+    the rare-path counters, and the K3 / K4 launches (with K3's shapes)
+    made inside the zdrop split rounds, which extend the remainders."""
+    import collections
+
+    import mappy_rs_tpu_torch
+    from mappy_rs_tpu_torch.ops import extend_kernel as ek
+    from mappy_rs_tpu_torch.ops import traceback as tb
+
+    al = mappy_rs_tpu_torch.Aligner(seq=genome, preset=preset,
+                                    extra_flags=flags, device=device)
+    eng = al._engine
+    eng.cfg.extension_backend = backend
+    split = {"extend_dp": 0, "traceback": 0, "shapes": collections.Counter()}
+    rounds = eng._run_split_rounds
+
+    def counted(read_regions, codes):
+        k3, k4, shapes = ek.launches, tb.launches, collections.Counter(ek.shapes)
+        rounds(read_regions, codes)
+        split["extend_dp"] += ek.launches - k3
+        split["traceback"] += tb.launches - k4
+        split["shapes"] += ek.shapes - shapes
+
+    eng._run_split_rounds = counted
+    regs = eng.map_batch(reads, cs=True, md=True)
+    c = eng.metrics.counters
+    return ([[mapping_fields(m) for m in al._to_mappings(r)] for r in regs],
+            {k: c.get(k, 0.0) for k in ("zdrop_splits", "inv_rescues")},
+            split)
+
+
+def _one_thread() -> None:
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def submit_rare_cpu(pool, cases) -> dict:
+    """The CPU side of 13b in `pool`, futures by (label, backend): the
+    CPU plain K3 / K4 take tens of seconds on a 12-14 kb RMQ read, so
+    they run in worker processes beside the card's work, longest first."""
+    order = sorted(((len(max(c[4], key=len)), c, b) for c in cases
+                    for b in RARE_BACKENDS), key=lambda x: -x[0])
+    return {(c[0], b): pool.submit(rare_map, c[3], c[4], c[1], c[2], b, "cpu")
+            for _, c, b in order}
+
+
+def phase_rare_paths(cases, cpu_futures) -> dict:
+    """13b: the rare-path reads through a card Aligner and a CPU Aligner
+    under each extension backend: equal Mappings and counters; under
+    "device" K3 and K4 launch on the split remainders; the inversion
+    read splits once and is rescued once, except under "device_dl",
+    which splits nothing (as the JAX package)."""
+    import collections
+
+    t0 = time.perf_counter()
+    out = {}
+    split_total = {"extend_dp": 0, "traceback": 0,
+                   "shapes": collections.Counter()}
+    for label, preset, flags, genome, reads in cases:
+        for backend in RARE_BACKENDS:
+            t1 = time.perf_counter()
+            card, c_card, split = rare_map(genome, reads, preset, flags,
+                                           backend, "cuda")
+            t_card = time.perf_counter() - t1
+            cpu, c_cpu, _ = cpu_futures[(label, backend)].result()
+            n_diff = sum(a != b for a, b in zip(card, cpu))
+            hits = sum(len(ms) for ms in card)
+            log(f"rare {label} [{backend}]: {len(reads)} reads, {hits} hits, "
+                f"{n_diff} differ card vs CPU; card {c_card}, CPU {c_cpu}; "
+                f"in split rounds K3 {split['extend_dp']}, K4 "
+                f"{split['traceback']}, K3 shapes {dict(split['shapes'])}; "
+                f"card {t_card:.2f} s")
+            if n_diff or len(card) != len(cpu) or c_card != c_cpu:
+                raise AssertionError(f"rare {label} [{backend}]: card != CPU")
+            if label.startswith("inversion"):
+                want = ({"zdrop_splits": 0.0, "inv_rescues": 0.0}
+                        if backend == "device_dl" else
+                        {"zdrop_splits": 1.0, "inv_rescues": 1.0})
+                if c_card != want:
+                    raise AssertionError(f"rare {label} [{backend}]: {c_card}")
+                if backend == "device" and not (split["extend_dp"] > 0
+                                                and split["traceback"] > 0):
+                    raise AssertionError(
+                        f"rare {label}: K3 / K4 did not launch on the split "
+                        f"remainders: {split}")
+            if backend == "device":
+                for k in ("extend_dp", "traceback", "shapes"):
+                    split_total[k] += split[k]
+            out[f"{label}/{backend}"] = {"hits": hits, "counters": c_card,
+                                         "split_k3": split["extend_dp"],
+                                         "split_k4": split["traceback"],
+                                         "card_s": t_card}
+    split_total["shapes"] = {"x".join(map(str, k)): v
+                             for k, v in split_total["shapes"].items()}
+    seconds = time.perf_counter() - t0
+    log(f"rare paths: every case card == CPU under {RARE_BACKENDS}; under "
+        f"\"device\" the split rounds launched K3 {split_total['extend_dp']} "
+        f"and K4 {split_total['traceback']} times, K3 shapes (QMAX x TMAX x "
+        f"W x J) {split_total['shapes']}; {seconds:.1f} s")
+    return {"cases": out, "device_split_launches": split_total,
+            "seconds": seconds}
+
+
+def phase_13(genome: str, reads) -> dict:
+    """Phase 13: the concordance sweep and the rare paths (their CPU side
+    in 6 worker processes meanwhile), then the trace."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    cases = rare_constructions()
+    with ProcessPoolExecutor(6, multiprocessing.get_context("spawn"),
+                             initializer=_one_thread) as pool:
+        futures = submit_rare_cpu(pool, cases)
+        rec = {"concordance": phase_concordance(),
+               "rare_paths": phase_rare_paths(cases, futures)}
+    rec["trace"] = phase_trace(genome, reads)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"phase 13: {rec['seconds']:.1f} s")
+    return rec
+
+
+def phase_trace(genome: str, reads) -> dict:
+    """13c: tools/trace_front_end.py on the card: a fresh map-ont Aligner
+    of phase 4's genome at [256, 1024] (phase 11 left grids on phase 4's
+    Aligner) and a map-hifi one at [8, 32,768]; where the profiler saw
+    device events, K1's and K2's kernels must be among them."""
+    import mappy_rs_tpu_torch
+    from mappy_rs_tpu_torch.tools import trace_front_end as tfe
+    from mappy_rs_tpu_torch.utils.simulate import simulate
+
+    hifi_len, hifi_err = HIFI_TRACE
+    hifi_reads, _ = simulate(np.random.default_rng(SEED + 13), genome, 8,
+                             hifi_len, hifi_err)
+    out = {}
+    for name, preset, rs in (("map-ont", "map-ont", reads[:512]),
+                             ("map-hifi", "map-hifi", hifi_reads)):
+        al = mappy_rs_tpu_torch.Aligner(seq=genome, preset=preset)
+        rec = tfe.run(preset, TRACE_REPLAYS, al=al, reads=rs)
+        tfe.report(rec)
+        if rec["profiler_device_events"]:
+            names = rec["op_names"]
+            for kern in ("chain_dp_kernel", "backtrack_kernel"):
+                if not any(kern in n for n in names):
+                    raise AssertionError(f"trace {name}: no {kern} among "
+                                         f"the device ops {names}")
+        if rec["event_ms_per_batch"] is None or rec["event_ms_per_batch"] <= 0:
+            raise AssertionError(f"trace {name}: no CUDA-event time: {rec}")
+        out[name] = rec
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2065,13 +2309,21 @@ def main() -> int:
     multi["seconds"] = time.perf_counter() - t0
     log(f"phase 11: {multi['seconds']:.1f} s")
     gbp = phase_genome_scale()
+    p13 = phase_13(genome, reads)
     # the main path's launches include phase 11's (K1 under both grids,
-    # K3 in decision mode; K2 and K4 do not run there) and phase 12's
+    # K3 in decision mode; K2 and K4 do not run there), phase 12's, and
+    # phase 13's (K1 / K2 in the concordance sweep, K3 / K4 on the
+    # zdrop-split remainders under "device")
     launches["chain_dp"] += sum(multi["mesh"][g]["launches"]["chain_dp"]
                                 for g in ("sharded", "data_parallel"))
     launches["extend_dp"] += multi["decisions"]["k3_launches"]
     for name in ("chain_dp", "backtrack_chains"):
         launches[name] += gbp["counters"][name]
+        launches[name] += sum(c["launches"][name]
+                              for c in p13["concordance"].values())
+    split = p13["rare_paths"]["device_split_launches"]
+    launches["extend_dp"] += split["extend_dp"]
+    launches["traceback"] += split["traceback"]
 
     kernels = []
     for name, src, repl in (
@@ -2108,6 +2360,10 @@ def main() -> int:
               "front_end_probes": sl["probes"],
               "process_runtime": procs, "host_backtrack": host_bt,
               "multi_device": multi, "genome_scale": gbp,
+              "concordance": p13["concordance"],
+              "rare_paths": p13["rare_paths"],
+              "trace": {k: {n: v for n, v in r.items() if n != "op_names"}
+                        for k, r in p13["trace"].items()},
               "cpu_count": os.cpu_count(),
               "seconds": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)

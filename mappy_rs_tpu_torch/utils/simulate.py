@@ -2,7 +2,9 @@
 
 ``simulate`` is a copy of the JAX package's bench.py ``simulate`` (numpy
 only), so the port's tests and chip_smoke.py make their data from a
-seed without anything outside this package.
+seed without anything outside this package.  ``zdrop_case``,
+``inversion_case``, ``rmq_case`` and ``fallback_batch`` copy the
+constructions of the JAX package's rare-path tests, draw for draw.
 """
 from __future__ import annotations
 
@@ -161,6 +163,107 @@ def spliced_genes(rng, genome: str, n: int, err: float,
             t = comp[t[::-1]]
         reads.append(t.tobytes().decode())
     return g.tobytes().decode(), reads, starts
+
+
+def rand_bases(rng, n: int) -> str:
+    """n random bases, drawn one index at a time (the draw of the JAX
+    package's inversion and rare-path-floor tests)."""
+    return "".join("ACGT"[i] for i in rng.integers(0, 4, n))
+
+
+def choice_bases(rng, n: int) -> str:
+    """n random bases by ``rng.choice`` (the draw of the JAX package's
+    zdrop, RMQ, mapq and overflow tests)."""
+    return "".join(rng.choice(list("ACGT"), size=n))
+
+
+def revcomp(s: str) -> str:
+    return s[::-1].translate(str.maketrans("ACGT", "TGCA"))
+
+
+def _invert_mutated(seg: str) -> str:
+    """The reverse complement of seg with every 12th base (from the 6th)
+    changed, so that no k = 15 window of it seeds a chain."""
+    b = list(revcomp(seg))
+    for i in range(5, len(b), 12):
+        b[i] = "ACGT"[("ACGT".index(b[i]) + 1) % 4]
+    return "".join(b)
+
+
+#: the zdrop-split constructions of the JAX package's test_zdrop_split.py:
+#: name -> its generator's seed
+ZDROP_CASES = {"patch": 8, "short_patch": 11, "long_deletion": 12,
+               "clean": 9, "two_patches": 10}
+
+
+def zdrop_case(name: str):
+    """(genome, reads) of a ZDROP_CASES construction on a 10 kb genome:
+    a 500 bp patch replacing reference (splits in two), a 250 bp patch
+    (absorbed as a long indel), a 450 bp deletion (aligns through), 5
+    clean 800 bp reads, and two 500 bp patches (splits in three)."""
+    rng = np.random.default_rng(ZDROP_CASES[name])
+    g = choice_bases(rng, 10_000)
+    if name == "patch":
+        return g, [g[2000:2600] + choice_bases(rng, 500) + g[3100:3700]]
+    if name == "short_patch":
+        return g, [g[2000:2600] + choice_bases(rng, 250) + g[2850:3450]]
+    if name == "long_deletion":
+        return g, [g[2000:2600] + g[3050:3650]]
+    if name == "clean":
+        starts = [int(rng.integers(0, len(g) - 800)) for _ in range(5)]
+        return g, [g[s:s + 800] for s in starts]
+    g1, g2 = choice_bases(rng, 500), choice_bases(rng, 500)
+    return g, [g[4000:4600] + g1 + g[5100:5700] + g2 + g[6200:6800]]
+
+
+def inversion_case(kind: str = "inversion"):
+    """(genome, read) of the JAX package's test_inversion.py: an 800 bp
+    segment between two 500 bp flanks, inverted and mutated in the read
+    (``kind`` "inversion"), or replaced by 800 bp of junk ("junk")."""
+    if kind == "inversion":
+        rng = np.random.default_rng(3)
+        a, b = rand_bases(rng, 500), rand_bases(rng, 800)
+        c = rand_bases(rng, 500)
+        genome = rand_bases(rng, 3000) + a + b + c + rand_bases(rng, 3000)
+        return genome, a + _invert_mutated(b) + c
+    rng = np.random.default_rng(9)
+    a, c = rand_bases(rng, 500), rand_bases(rng, 500)
+    genome = (rand_bases(rng, 2000) + a + rand_bases(rng, 800) + c
+              + rand_bases(rng, 2000))
+    return genome, a + rand_bases(rng, 800) + c
+
+
+def rmq_case(case: str):
+    """(genome, read) of the JAX package's test_rmq_chain.py on its 60 kb
+    genome: a 6 kb deletion ("deletion"), a 3 kb insertion
+    ("insertion"), or 2 kb of junk replacing reference ("junk")."""
+    g = choice_bases(np.random.default_rng(5), 60_000)
+    if case == "insertion":
+        ins = choice_bases(np.random.default_rng(7), 3000)
+        return g, g[30_000:36_000] + ins + g[36_000:42_000]
+    if case == "junk":
+        junk = choice_bases(np.random.default_rng(13), 2000)
+        return g, g[10_000:16_000] + junk + g[18_000:24_000]
+    return g, g[10_000:16_000] + g[22_000:28_000]
+
+
+def fallback_batch(n: int = 64):
+    """(genome, reads) of the JAX package's test_rare_path_floor.py: a
+    400 kb genome and n reads that all miss the fused C++ post-chain,
+    alternately zdrop chimeras (600 + 500 junk + 600 bp) and inversions
+    (500 + 800 inverted, mutated + 500 bp)."""
+    rng = np.random.default_rng(17)
+    g = rand_bases(rng, 400_000)
+    reads = []
+    for i in range(n):
+        s = int(rng.integers(1000, len(g) - 3000))
+        if i % 2 == 0:
+            reads.append(g[s:s + 600] + rand_bases(rng, 500)
+                         + g[s + 1100:s + 1700])
+        else:
+            reads.append(g[s:s + 500] + _invert_mutated(g[s + 500:s + 1300])
+                         + g[s + 1300:s + 1800])
+    return g, reads
 
 
 def sweep_anchors(rng, B: int, A: int, bw: int, span: int = 15,

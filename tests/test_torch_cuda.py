@@ -505,3 +505,36 @@ def test_decision_mode_on_card_matches_cpu(cuda, tmp_path):
     assert got == cpu.map_batch_positions(reads)
     assert sum(1 for r, c in zip(got, want) if r and r["ctg"] == c) >= 94
     assert got[-1] is None
+
+
+@pytest.mark.cuda
+def test_concordance_on_card_matches_cpu(cuda):
+    """The sweep's device front end (K1 + K2) on the card gives the same
+    counts as through their plain versions on the CPU, with K1 and K2
+    launched."""
+    from mappy_rs_tpu_torch.tools.concordance import run_preset
+
+    ck.launches = bt.launches = 0
+    card = run_preset("map-ont", 100, device="cuda")
+    assert ck.launches > 0 and bt.launches > 0
+    cpu = run_preset("map-ont", 100, device="cpu")
+    assert card == cpu
+    assert card["both_mapped"] >= 93
+    assert card["full"] >= 0.95 * card["both_mapped"]
+
+
+@pytest.mark.cuda
+def test_trace_front_end_on_card(cuda):
+    """The trace tool on the card: the profiler's device events hold K1's
+    and K2's kernels, busy time under the traced wall, CUDA-event and
+    CUDA-graph times."""
+    from mappy_rs_tpu_torch.tools import trace_front_end as tfe
+
+    rec = tfe.run("map-ont", 4, genome_len=2_000_000, n_reads=256)
+    assert rec["device"] == torch.cuda.get_device_name(0)
+    assert rec["profiler_device_events"] is True
+    for kern in ("chain_dp_kernel", "backtrack_kernel"):
+        assert any(kern in n for n in rec["op_names"]), kern
+    assert 0 < rec["busy_ms_per_batch"] <= rec["span_ms_per_batch"]
+    assert 0 < rec["duty"] <= 1
+    assert rec["event_ms_per_batch"] > 0 and rec["graph_ms_per_batch"] > 0

@@ -5,7 +5,9 @@ references, with no Pallas kernel: its sketch and seed lookup, its
 windowed chain DP ``ops/chain.py chain_scores`` (K1's reference, window
 128) and its host chain backtrack (native ``backtrack_compact_batch``,
 the path its engine takes when the device backtrack is off), on the
-packed anchor stack its ``_front_end`` downloads.
+packed anchor stack its ``_front_end`` downloads.  ``aligner_pair`` and
+``same_mappings`` hold the two packages' Aligners against each other
+read by read, with the engine counters of the rare paths.
 """
 import threading
 
@@ -13,6 +15,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
+import mappy_rs_tpu
 from mappy_rs_tpu import native as jax_native
 from mappy_rs_tpu.ops.chain import ChainParams as JaxChainParams
 from mappy_rs_tpu.ops.chain import chain_scores as jax_chain_scores
@@ -21,6 +24,7 @@ from mappy_rs_tpu.ops.sketch import compress_hpc as jax_compress_hpc
 from mappy_rs_tpu.ops.sketch import hpc_spans as jax_hpc_spans
 from mappy_rs_tpu.ops.sketch import sketch_compact as jax_sketch_compact
 
+import mappy_rs_tpu_torch
 from mappy_rs_tpu_torch.ops.sketch import INF_WIDE
 from mappy_rs_tpu_torch.utils.seqcodes import encode
 from mappy_rs_tpu_torch.utils.simulate import random_genome
@@ -33,6 +37,41 @@ def fields(m):
         getattr(m, "cigar" if s == "_cig" else "strand" if s == "_strand" else s)
         for s in m.__slots__
     )
+
+
+#: engine counters of the rare paths (zdrop splits, inversion rescue,
+#: anchor-budget retries)
+RARE_COUNTERS = ("zdrop_splits", "inv_rescues", "anchor_overflow_retries")
+
+
+def aligner_pair(seq=None, fa=None, backend="auto", front_end="device",
+                 **kw):
+    """(the port's Aligner on the CPU, the JAX package's Aligner) of one
+    genome (`seq`, or the FASTA `fa`) with the same options, extension
+    backend and front end."""
+    src = {"seq": seq} if fa is None else {"fn_idx_in": fa}
+    tal = mappy_rs_tpu_torch.Aligner(**src, device="cpu", **kw)
+    jal = mappy_rs_tpu.Aligner(**src, **kw)
+    for al in (tal, jal):
+        al._engine.cfg.extension_backend = backend
+        al._engine.cfg.front_end_backend = front_end
+    return tal, jal
+
+
+def rare_counters(al) -> dict:
+    c = al._engine.metrics.counters
+    return {k: c.get(k, 0.0) for k in RARE_COUNTERS}
+
+
+def same_mappings(tal, jal, reads, md: bool = True) -> list:
+    """Each read through both Aligners' map() (cs, and MD if `md`): equal
+    Mappings, and equal rare-path counters after all reads; returns the
+    port's fields per read."""
+    got = [[fields(m) for m in tal.map(r, cs=True, MD=md)] for r in reads]
+    want = [[fields(m) for m in jal.map(r, cs=True, MD=md)] for r in reads]
+    assert got == want
+    assert rare_counters(tal) == rare_counters(jal)
+    return got
 
 
 def drain(al, payload, timeout: float = 300.0) -> dict:
