@@ -147,6 +147,20 @@ non-zero):
      15 kb reads ([8, 32,768]): busy ms per batch from torch.profiler
      and from CUDA events, duty, the top device ops, with K1's and K2's
      kernels among the traced ops.
+ 14. the measurement tools: (a) mappy_rs_tpu_torch/tools/bench.py at its
+     full workload (32 Mbp, 6 passes of 8,000 1 kb reads, "device_owner"
+     with 3 children and 9 proxies) with the CPU baseline measured on this
+     host (the native CPU path on device="cpu", the better of n_cores
+     threads and n_cores processes): its JSON line printed, >= 99% of
+     every pass within 100 bp, K1 and K2 launched in this process during
+     the passes, no baseline child on the card (nvidia-smi's compute apps
+     no more while the children run than before); (b) tools/thread_bench.py
+     at its defaults (400 reads, 0.5 Mbp): four rows, equal mapped counts,
+     >= 99% mapped; (c) tools/memory.py --threaded --cycles 50 on the card
+     in its own process: its RSS and card memory (allocated, reserved)
+     each grown <= 200 MB after cycle 2, the Mappings the same in every
+     cycle; (d) tools/microbench.py: dispatch, transfer and front-end
+     times, all > 0.
 Prints per-kernel times (CUDA events around eager calls, the JSON
 line's `ms`; also as CUDA-graph replays, `graph_ms`, which leave out
 the host's launch cost) beside the plain versions' and each
@@ -2260,6 +2274,130 @@ def phase_trace(genome: str, reads) -> dict:
     return out
 
 
+# -------------------------------------------------------------- phase 14
+MEMORY_CYCLES = 50
+MEMORY_TIMEOUT = 300  # seconds the soak's process may take
+
+
+def phase_bench() -> dict:
+    """14a: tools/bench.py at its full workload on the card, the CPU
+    baseline measured on this host; raises unless every pass places >=
+    99% within 100 bp, K1 and K2 launched in this process during the
+    passes, and the baseline's children opened no context on the card."""
+    from mappy_rs_tpu_torch.tools import bench
+
+    t0 = time.perf_counter()
+    rec = bench.run(device="cuda")
+    bench.report(rec)  # the JSON line on stdout, bench.py's lines on stderr
+    launches = rec["run"]["launches"]
+    base = rec["baseline"]
+    placed = [p["placed"] for p in rec["passes"]]
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"bench: median {rec['line']['median']} reads/s over "
+        f"{len(placed)} passes of {rec['n_reads']} "
+        f"({rec['line']['passes']}), vs_baseline "
+        f"{rec['line']['vs_baseline']} (baseline {base['value']} reads/s on "
+        f"{base['n_cores']} cores, modes {base['modes']}); placed per pass "
+        f"{placed}; this process's launches during the passes "
+        f"{launches}; compute apps on the card before the baseline "
+        f"{base['compute_apps_before']}, while its children ran "
+        f"{base['compute_apps_during']}; {rec['phase_s']:.1f} s")
+    if min(placed) < 0.99 * rec["n_reads"]:
+        raise AssertionError(f"bench: placed per pass {placed}")
+    if launches["chain_dp"] <= 0 or launches["backtrack_chains"] <= 0:
+        raise AssertionError(f"bench: K1/K2 launches {launches}")
+    if base["children_on_card"] != 0:
+        raise AssertionError(
+            f"bench: the baseline's children held the card: apps "
+            f"{base['compute_apps_before']} -> {base['compute_apps_during']}")
+    if not rec["line"]["card"]:
+        raise AssertionError(f"bench: no card line: {rec['line']}")
+    return rec
+
+
+def phase_thread_bench() -> dict:
+    """14b: tools/thread_bench.py at its defaults on the card: four rows,
+    equal mapped counts, >= 99% of the reads mapped."""
+    from mappy_rs_tpu_torch.tools import thread_bench
+
+    t0 = time.perf_counter()
+    rec = thread_bench.run()
+    thread_bench.report(rec)
+    mapped = {n for _name, _dt, n in rec["rows"]}
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"thread_bench: {rec['phase_s']:.1f} s")
+    if len(rec["rows"]) != 4 or len(mapped) != 1 or \
+            min(mapped) < 0.99 * rec["n_reads"]:
+        raise AssertionError(f"thread_bench: rows {rec['rows']}")
+    return rec
+
+
+def phase_memory() -> dict:
+    """14c: tools/memory.py --threaded on the card in its own process:
+    exit 0, its resident set and card memory (allocated, reserved) each
+    grown <= 200 MB after the warm-up (its peak RSS is this process's,
+    which Linux hands on across fork and exec, so it cannot grow)."""
+    t0 = time.perf_counter()
+    out = os.path.abspath(os.path.join("chiprun_out", "memory.json"))
+    res = subprocess.run(
+        [sys.executable, "-m", "mappy_rs_tpu_torch.tools.memory",
+         "--threaded", f"--cycles={MEMORY_CYCLES}", "--device=cuda",
+         f"--out={out}"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=MEMORY_TIMEOUT)
+    log(res.stdout.rstrip())
+    if res.returncode != 0:
+        raise AssertionError(f"memory soak exit {res.returncode}: "
+                             f"{res.stderr[-4000:]}")
+    with open(out) as fh:
+        rec = json.load(fh)
+    g = rec["cuda_growth_mb"]
+    if (g is None or rec["rss_growth_mb"] is None or rec["failed"]
+            or max(rec["rss_growth_mb"], rec["max_rss_growth_mb"],
+                   *g.values()) > 200):
+        raise AssertionError(f"memory soak: {rec}")
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"memory soak: {MEMORY_CYCLES} threaded cycles, RSS grew "
+        f"{rec['rss_growth_mb']:.1f} MB (peak RSS "
+        f"{rec['max_rss_growth_mb']:.1f} MB: inherited from this process, "
+        f"so blind here), card allocated "
+        f"{g['allocated']:.1f} MB, reserved {g['reserved']:.1f} MB after "
+        f"cycle 2; {rec['phase_s']:.1f} s")
+    return rec
+
+
+def phase_microbench() -> dict:
+    """14d: tools/microbench.py on the card: every time and rate > 0."""
+    from mappy_rs_tpu_torch.tools import microbench
+
+    t0 = time.perf_counter()
+    rec = microbench.run("cuda")
+    fe = rec["front_end"]
+    values = [rec["dispatch_ms"]["med"], rec["upload_4096kb"]["mb_per_s"],
+              fe["compute_only_ms"]["med"], fe["compute_download_ms"]["med"]]
+    values += [r["mb_per_s"] for row in rec["download"].values()
+               for r in row.values()]
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"microbench: {rec['phase_s']:.1f} s")
+    if not all(np.isfinite(v) and v > 0 for v in values):
+        raise AssertionError(f"microbench: {rec}")
+    return rec
+
+
+def phase_14() -> dict:
+    """Phase 14: the measurement tools on the card."""
+    t0 = time.perf_counter()
+    rec = {"bench": phase_bench(), "thread_bench": phase_thread_bench(),
+           "memory": phase_memory(), "microbench": phase_microbench()}
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"phase 14: {rec['seconds']:.1f} s (bench "
+        f"{rec['bench']['phase_s']:.1f}, thread_bench "
+        f"{rec['thread_bench']['phase_s']:.1f}, memory "
+        f"{rec['memory']['phase_s']:.1f}, microbench "
+        f"{rec['microbench']['phase_s']:.1f})")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2310,6 +2448,7 @@ def main() -> int:
     log(f"phase 11: {multi['seconds']:.1f} s")
     gbp = phase_genome_scale()
     p13 = phase_13(genome, reads)
+    p14 = phase_14()
     # the main path's launches include phase 11's (K1 under both grids,
     # K3 in decision mode; K2 and K4 do not run there), phase 12's, and
     # phase 13's (K1 / K2 in the concordance sweep, K3 / K4 on the
@@ -2321,6 +2460,9 @@ def main() -> int:
         launches[name] += gbp["counters"][name]
         launches[name] += sum(c["launches"][name]
                               for c in p13["concordance"].values())
+    # and phase 14's (K1 / K2 in the parent during the bench's passes)
+    for name in ("chain_dp", "backtrack_chains"):
+        launches[name] += p14["bench"]["run"]["launches"][name]
     split = p13["rare_paths"]["device_split_launches"]
     launches["extend_dp"] += split["extend_dp"]
     launches["traceback"] += split["traceback"]
@@ -2364,6 +2506,7 @@ def main() -> int:
               "rare_paths": p13["rare_paths"],
               "trace": {k: {n: v for n, v in r.items() if n != "op_names"}
                         for k, r in p13["trace"].items()},
+              "measurement_tools": p14,
               "cpu_count": os.cpu_count(),
               "seconds": time.perf_counter() - t_start}
     os.makedirs("chiprun_out", exist_ok=True)

@@ -538,3 +538,40 @@ def test_trace_front_end_on_card(cuda):
     assert 0 < rec["busy_ms_per_batch"] <= rec["span_ms_per_batch"]
     assert 0 < rec["duty"] <= 1
     assert rec["event_ms_per_batch"] > 0 and rec["graph_ms_per_batch"] > 0
+
+
+@pytest.mark.cuda
+def test_bench_on_card_matches_cpu(cuda, monkeypatch):
+    """tools/bench.py's card-path Aligner maps a tiny workload on the card
+    as on the CPU, and the tool runs end to end on the card: every read
+    placed, K1 and K2 launched in this process during the passes, no
+    baseline child on the card."""
+    from mappy_rs_tpu_torch.tools import bench
+    from mappy_rs_tpu_torch.tools.memory import _digest
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setenv("MAPPY_RS_TPU_PROCS", "2")
+    wl = bench.workload(1, 64, 1, 64)
+    card = bench.card_aligner(wl.genome, "cuda")
+    cpu = bench.card_aligner(wl.genome, "cpu")
+    got = [card.map(r, cs=True) for r in wl.reads]
+    assert _digest(got) == _digest([cpu.map(r, cs=True) for r in wl.reads])
+    rec = bench.run(genome_mb=1, n_reads=256, n_pass=2, n_reads_cpu=128,
+                    device="cuda")
+    assert [p["placed"] for p in rec["passes"]] == [256, 256]
+    launches = rec["run"]["launches"]
+    assert launches["chain_dp"] > 0 and launches["backtrack_chains"] > 0
+    assert rec["baseline"]["children_on_card"] == 0
+    assert rec["line"]["card"] and rec["line"]["vs_baseline"] > 0
+
+
+@pytest.mark.cuda
+def test_memory_soak_on_card(cuda):
+    """The soak on the card: card memory (allocated, reserved) grows less
+    than 200 MB after the warm-up and the Mappings never change."""
+    from mappy_rs_tpu_torch.tools import memory
+
+    rec = memory.run(cycles=12, threaded=True, device="cuda")
+    assert rec["cuda_growth_mb"] is not None
+    assert memory.check(rec) == [], rec
+    assert rec["lines"][-1]["cuda_allocated_mb"] > 0

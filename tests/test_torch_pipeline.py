@@ -240,7 +240,9 @@ def test_import_leaves_jax_out():
         "mappy_rs_tpu_torch.parallel.multihost, mappy_rs_tpu_torch.entry, "
         "mappy_rs_tpu_torch.tools.gbp_chip, mappy_rs_tpu_torch.tools.hbm_budget, "
         "mappy_rs_tpu_torch.tools.concordance, "
-        "mappy_rs_tpu_torch.tools.trace_front_end; "
+        "mappy_rs_tpu_torch.tools.trace_front_end, "
+        "mappy_rs_tpu_torch.tools.bench, mappy_rs_tpu_torch.tools.thread_bench, "
+        "mappy_rs_tpu_torch.tools.memory, mappy_rs_tpu_torch.tools.microbench; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'mappy_rs_tpu' or m.startswith('mappy_rs_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
