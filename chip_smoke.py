@@ -29,11 +29,24 @@ non-zero):
      100 bp of their origin, both kernels must have launched, the index
      tensors must be on the card, one front-end dispatch must run under
      torch.cuda.set_sync_debug_mode("error"), and 64 reads must map
-     identically on the card and through the CPU plain versions.  Then
+     identically on the card and through the CPU plain versions; every
+     front-end batch of the run must be one replay of a captured CUDA
+     graph (fe_graph_replays == fe_batches).  Then
      the front-end probes on a [256, 1024] batch: probe_front_end()
      (pipelined and blocking seconds per batch) and front_end_roofline()
      (int ops and bytes), with the bytes and ops as shares of 3.35 TB/s
      and of the int32 rate that bound() uses.
+ 4b. the front end as one CUDA graph per batch key (models/fe_graph.py):
+     2,048 of phase 4's reads through phase 4's Aligner with its graphs
+     and through the private eager switch (engine._fe_graphs = None):
+     equal Mappings, no capture in the graph run, every batch a replay,
+     equal K1 / K2 launches; the same for 256 reads through the host
+     backtrack (device_backtrack "off") and for reads that overflow
+     the anchor budget (retried at A x 4 and x 16; a 200 kb genome
+     with a 600 bp segment repeated 40 times); the captured keys with
+     their pools' MB; and per [256, 1024] batch the host ms of
+     _fe_submit_batch, its device span between CUDA events and the
+     pipelined wall, graph / eager / eager / graph.
   5. K3 (banded extension DP): kernel == plain version, exactly (dirs
      and the six trackers), at J=253, (512, 512), W in {32, 64, 72, 96,
      128, 160, 256, 288} (both sides of the warp/block switch at 256; 72
@@ -126,7 +139,8 @@ non-zero):
      unique-origin reads map identically through the card engine and a
      CPU engine on the same tables (the plain K1 / K2), and (e) the host
      RAM, free temporary space and card memory it needs are there before
-     it starts.  Phase 11 also runs (d) the top-level entry points,
+     it starts; every front-end batch of the passes was a graph replay.
+     Phase 11 also runs (d) the top-level entry points,
      entry() and dryrun_multichip(4) with every cell on cuda:0.
  13. the last tools and the rare paths: (a) the concordance sweep
      (mappy_rs_tpu_torch/tools/concordance.py) of map-ont, map-hifi,
@@ -146,14 +160,16 @@ non-zero):
      of phase 4's genome ([256, 1024], 20 replays) and on 8 map-hifi
      15 kb reads ([8, 32,768]): busy ms per batch from torch.profiler
      and from CUDA events, duty, the top device ops, with K1's and K2's
-     kernels among the traced ops.
+     kernels among the traced ops, for the eager ops and for the
+     engine's graph replays.
  14. the measurement tools: (a) mappy_rs_tpu_torch/tools/bench.py at its
      full workload (32 Mbp, 6 passes of 8,000 1 kb reads, "device_owner"
      with 3 children and 9 proxies) with the CPU baseline measured on this
      host (the native CPU path on device="cpu", the better of n_cores
      threads and n_cores processes): its JSON line printed, >= 99% of
      every pass within 100 bp, K1 and K2 launched in this process during
-     the passes, no baseline child on the card (nvidia-smi's compute apps
+     the passes and every front-end batch a graph replay, no baseline
+     child on the card (nvidia-smi's compute apps
      no more while the children run than before); (b) tools/thread_bench.py
      at its defaults (400 reads, 0.5 Mbp): four rows, equal mapped counts,
      >= 99% mapped; (c) tools/memory.py --threaded --cycles 50 on the card
@@ -646,6 +662,7 @@ def phase_slice(al, reads, starts, genome) -> dict:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
+    check_replays(m, "phase 4")
 
     # the card's mappings == the CPU plain versions', on a small input
     rng = np.random.default_rng(SEED + 1)
@@ -684,6 +701,169 @@ def front_end_probes(al, reads) -> dict:
         f"TB/s, {100 * shares['int_ops_share']:.3f}% of "
         f"{INT32_OPS_PER_S / 1e12:.2f} Top/s int32")
     return {"probe_s": probe, "roofline": roof, **shares}
+
+
+def check_replays(m: dict, label: str) -> None:
+    """Every single-device front-end batch of a run was one replay of a
+    captured CUDA graph (`m`: engine metrics of the run)."""
+    if m.get("fe_batches", 0) <= 0 or \
+            m.get("fe_graph_replays", 0) != m["fe_batches"]:
+        raise AssertionError(
+            f"{label}: {m.get('fe_graph_replays', 0)} graph replays for "
+            f"{m.get('fe_batches', 0)} front-end batches")
+
+
+# -------------------------------------------------------------- phase 4b
+N_GRAPH_READS = 2048  # phase 4's reads mapped with graphs and eagerly
+N_GRAPH_TIMED = 24    # [256, 1024] batches timed per mode
+
+
+def graph_vs_eager(al, reads, label: str) -> dict:
+    """The engine's Mappings of `reads` (one map_batch) through its
+    graphs and eagerly (the private switch: no graph cache), with the K1
+    / K2 launches and the engine metrics of each run; raises unless the
+    Mappings are equal and every graph-run batch was a replay.  The
+    graphs of the reads' keys are captured first, so the graph run
+    captures nothing and launches what the eager run launches."""
+    from mappy_rs_tpu_torch.ops import backtrack as bt
+    from mappy_rs_tpu_torch.ops import chain_kernel as ck
+
+    eng = al._engine
+    graphs = eng._fe_graphs
+
+    def run():
+        eng.metrics.reset()
+        ck.launches = bt.launches = 0
+        out = [[mapping_fields(m) for m in al._to_mappings(r)]
+               for r in eng.map_batch(reads, cs=True, md=True)]
+        return (out, {"chain_dp": ck.launches,
+                      "backtrack_chains": bt.launches},
+                eng.metrics.snapshot())
+
+    run()  # capture every key these reads meet
+    got, l_graph, m_graph = run()
+    eng._fe_graphs = None
+    try:
+        want, l_eager, m_eager = run()
+    finally:
+        eng._fe_graphs = graphs
+    n_diff = sum(a != b for a, b in zip(got, want))
+    rec = {"reads": len(reads), "differ": n_diff,
+           "launches_graph": l_graph, "launches_eager": l_eager,
+           "fe_batches": m_graph.get("fe_batches", 0),
+           "fe_graph_captures": m_graph.get("fe_graph_captures", 0),
+           "fe_graph_replays": m_graph.get("fe_graph_replays", 0),
+           "host_bt_batches": m_graph.get("host_bt_batches", 0),
+           "anchor_overflow_retries": m_graph.get("anchor_overflow_retries",
+                                                  0),
+           "eager_fe_batches": m_eager.get("fe_batches", 0)}
+    log(f"{label}: graph vs eager: {json.dumps(rec)}")
+    if n_diff:
+        raise AssertionError(f"{label}: {n_diff} reads differ graph vs eager")
+    check_replays(m_graph, label)
+    if rec["fe_graph_captures"] or l_graph != l_eager or \
+            rec["fe_batches"] != rec["eager_fe_batches"]:
+        raise AssertionError(f"{label}: graph run {rec}")
+    return rec
+
+
+def time_submits(eng, codes, n: int) -> dict:
+    """n [256, 1024] front-end batches submitted as the pipeline submits
+    them (at most 3 in flight, each collected): host ms of each
+    _fe_submit_batch call (perf_counter), its device span between CUDA
+    events recorded before and after it, and the wall per batch."""
+    import torch
+    from collections import deque
+
+    L = 1024
+    B, M, A = eng.fe_shapes(L)
+    codes = codes[:B]
+    use_bt, cuts = eng._bt_enabled(A), min(8, L // eng.SEG_LEN)
+    host, evs, pend = [], [], deque()
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    for _ in range(n):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        _lens, h = eng._fe_submit_batch(codes, L, B, M, A, use_bt, cuts)
+        host.append(time.perf_counter() - t0)
+        e1.record()
+        evs.append((e0, e1))
+        pend.append(h)
+        if len(pend) >= 3:
+            eng._fe_collect(pend.popleft())
+    while pend:
+        eng._fe_collect(pend.popleft())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all
+    dev = [a.elapsed_time(b) for a, b in evs]
+    return {"host_ms": 1e3 * float(np.mean(host)),
+            "host_ms_min": 1e3 * float(np.min(host)),
+            "device_ms": float(np.mean(dev)),
+            "wall_ms_per_batch": 1e3 * wall / n}
+
+
+def phase_graphs(al, reads) -> dict:
+    """4b: the front end as one CUDA graph per batch key, on phase 4's
+    Aligner: 2,048 of phase 4's reads through the graphs and eagerly
+    (equal Mappings, no capture in the graph run, every batch a replay,
+    the same K1 / K2 launches), also through the host backtrack
+    (device_backtrack "off") and the anchor-budget retries (a read of a
+    600 bp segment repeated 40 times in a 200 kb genome, retried at A x
+    4 and x 16); the captured keys with their pools' MB; and per
+    [256, 1024] batch the host ms of _fe_submit_batch and its device
+    span (CUDA events), graph and eager, in turns."""
+    import mappy_rs_tpu_torch
+    from mappy_rs_tpu_torch.utils.seqcodes import encode
+    from mappy_rs_tpu_torch.utils.simulate import random_genome, simulate
+
+    t0 = time.perf_counter()
+    eng = al._engine
+    rec = {"main": graph_vs_eager(al, reads[:N_GRAPH_READS], "phase 4b")}
+    eng.cfg.device_backtrack = "off"
+    try:
+        rec["host_backtrack"] = graph_vs_eager(al, reads[:256],
+                                               "phase 4b host backtrack")
+    finally:
+        eng.cfg.device_backtrack = "auto"
+    if rec["host_backtrack"]["host_bt_batches"] <= 0:
+        raise AssertionError("phase 4b: no host-backtrack batch")
+    rng = np.random.default_rng(SEED + 4)
+    seg = random_genome(rng, 600)
+    g = random_genome(rng, 100_000) + seg * 40 + random_genome(rng, 100_000)
+    ov_reads, _ = simulate(rng, g[:100_000], 30, READ_LEN, ERR)
+    ov = mappy_rs_tpu_torch.Aligner(seq=g)
+    rec["retries"] = graph_vs_eager(
+        ov, ov_reads + [seg, mappy_rs_tpu_torch.revcomp(seg)],
+        "phase 4b retries")
+    if rec["retries"]["anchor_overflow_retries"] < 2:
+        raise AssertionError(f"phase 4b: retries {rec['retries']}")
+    rec["retry_keys"] = ov._engine._fe_graphs.stats()
+    rec["keys"] = al._engine._fe_graphs.stats()
+    for row in rec["keys"] + rec["retry_keys"]:
+        log(f"graph key B={row['B']} L={row['L']} M={row['M']} "
+            f"A={row['A']} K2={row['use_bt']}: pool {row['pool_mb']:.1f} "
+            f"MB, {row['replays']} replays, {row['launches']} per replay")
+    codes = [encode(r) for r in reads[:256]]
+    graphs = eng._fe_graphs
+    times = {"graph": [], "eager": []}
+    for mode in ("graph", "eager", "eager", "graph"):
+        eng._fe_graphs = graphs if mode == "graph" else None
+        try:
+            times[mode].append(time_submits(eng, codes, N_GRAPH_TIMED))
+        finally:
+            eng._fe_graphs = graphs
+    rec["times"] = times
+    for mode, rows in times.items():
+        log(f"[256, 1024] {mode}: host ms per _fe_submit_batch "
+            f"{[round(r['host_ms'], 3) for r in rows]}, device span ms "
+            f"{[round(r['device_ms'], 3) for r in rows]}, wall ms per batch "
+            f"{[round(r['wall_ms_per_batch'], 3) for r in rows]}")
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"phase 4b: {rec['seconds']:.1f} s")
+    return rec
 
 
 # ----------------------------------------------------------- phases 5 + 6
@@ -2018,9 +2198,11 @@ def phase_genome_scale(n_contig: int = GBP_CONTIGS) -> dict:
         f"{rec['placed']}/{rec['reads']}; front end "
         f"{rec['ms_per_batch_pipelined']:.3f} ms per batch pipelined; "
         f"counters {count}")
-    # (b) K1 and K2 in this process during the passes
+    # (b) K1 and K2 in this process during the passes, every front-end
+    # batch a graph replay
     if count["chain_dp"] <= 0 or count["backtrack_chains"] <= 0:
         raise AssertionError(f"genome scale: K1/K2 launches {count}")
+    check_replays(count, "genome scale")
     # (c) unique-origin reads placed
     if rec["unique_placed"] < 0.99 * rec["unique"]:
         raise AssertionError(f"genome scale: {rec['unique_placed']}/"
@@ -2270,6 +2452,8 @@ def phase_trace(genome: str, reads) -> dict:
                                          f"the device ops {names}")
         if rec["event_ms_per_batch"] is None or rec["event_ms_per_batch"] <= 0:
             raise AssertionError(f"trace {name}: no CUDA-event time: {rec}")
+        if not rec["graph"] or not rec["graph_ms_per_batch"] > 0:
+            raise AssertionError(f"trace {name}: no graph replay time: {rec}")
         out[name] = rec
     return out
 
@@ -2306,6 +2490,7 @@ def phase_bench() -> dict:
         raise AssertionError(f"bench: placed per pass {placed}")
     if launches["chain_dp"] <= 0 or launches["backtrack_chains"] <= 0:
         raise AssertionError(f"bench: K1/K2 launches {launches}")
+    check_replays(launches, "bench")
     if base["children_on_card"] != 0:
         raise AssertionError(
             f"bench: the baseline's children held the card: apps "
@@ -2425,6 +2610,7 @@ def main() -> int:
 
     kern = phase_kernels(al, reads, rng)
     sl = phase_slice(al, reads, starts, genome)
+    graphs = phase_graphs(al, reads)
     kern.update(phase_ext_kernels(al, reads, rng))
     ext = phase_ext_slice(al, reads, starts)
     long_reads = phase_long_reads(al, genome)
@@ -2500,6 +2686,7 @@ def main() -> int:
               "splice_sweep": kern["chain_dp"].get("splice_sweep"),
               "presets": presets,
               "front_end_probes": sl["probes"],
+              "front_end_graphs": graphs,
               "process_runtime": procs, "host_backtrack": host_bt,
               "multi_device": multi, "genome_scale": gbp,
               "concordance": p13["concordance"],

@@ -527,11 +527,13 @@ class Aligner:
         )
 
     def warmup(self, seqs: List[str]) -> None:
-        """Pay one-time costs (kernel build, device index upload) up
-        front by mapping a representative chunk; in multi-process mode
-        through every worker process (the streaming queue alone would
-        let one warm child take the whole chunk).  Optional: the first
-        real batch triggers the same work lazily."""
+        """Pay one-time costs (kernel build, device index upload, and
+        on the card the capture of the chunk's front-end CUDA graphs, one
+        per batch shape it meets) up front by mapping a representative
+        chunk; in multi-process mode through every worker process (the
+        streaming queue alone would let one warm child take the whole
+        chunk).  Optional: the first real batch of each shape triggers
+        the same work lazily."""
         if self._procs is not None:
             self._procs.warmup(list(seqs))
         else:
@@ -542,7 +544,8 @@ class Aligner:
         # Identical reads within a device batch are mapped once and
         # fanned back out (adaptive-sampling streams re-see sequences).
         # NB: no engine-wide lock — the engine is stateless per call
-        # (thread-safe metrics, thread-safe jit caches), so one worker's
+        # (thread-safe metrics, a thread-safe cache of front-end CUDA
+        # graphs with one lock per graph), so one worker's
         # host-side extension overlaps another's device front-end.
         uniq: Dict[str, List[Mapping]] = {}
         keys = [s for s in dict.fromkeys(seqs)]

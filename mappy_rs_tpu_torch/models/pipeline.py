@@ -74,6 +74,7 @@ from ..ops.regions import (
 from ..ops.sketch import compress_hpc, hpc_spans, sketch_compact
 from ..utils.metrics import EngineMetrics
 from ..utils.seqcodes import encode
+from .fe_graph import FrontEndGraphs
 
 # region part CIGARs are packed int32 (len<<4|op) arrays end-to-end
 # (the extension engines' wire format); this is the canonical "empty"
@@ -263,7 +264,8 @@ class _FrontEndHandles:
     """One dispatched front end.  With K2 (`bt_cuts` None): the chain
     table and aux (rep_len, n_raw) already copied to the host (pinned
     on CUDA).  For the host backtrack: the anchor stack still on the
-    device, its counts (n, n_raw, rep_len) copied to the host, and the
+    device (a copy of a graph's static output, never the output
+    itself), its counts (n, n_raw, rep_len) copied to the host, and the
     cuts the host backtrack records.  `done` marks the copies complete
     (None on CPU)."""
 
@@ -295,10 +297,19 @@ class AlignmentEngine:
         # band width class for flank extensions
         self.flank_band = 128
         self.metrics = EngineMetrics()
-        # the last front-end dispatch: (B, L, M, A) and a closure that
-        # re-runs it on its uploaded inputs (probe_front_end)
+        # the last front-end dispatch: (B, L, M, A), a closure that
+        # re-runs it on its uploaded inputs as the path runs it
+        # (probe_front_end: a graph replay on the card), and one that runs
+        # its ops eagerly (tools/trace_front_end.py)
         self._probe_shape: Optional[Tuple[int, int, int, int]] = None
         self._probe_dispatch = None
+        self._probe_eager = None
+        # the single-device front end's captured CUDA graphs, one per
+        # batch key (models/fe_graph.py); None runs its ops eagerly, as on
+        # the CPU.  Private: a caller sets None only to compare with the
+        # eager path.
+        self._fe_graphs = (FrontEndGraphs(self.metrics)
+                           if self.device.type == "cuda" else None)
         # optional device grid (enable_mesh): the front end runs row by
         # row through _mesh_fe; everything downstream is unchanged
         self.mesh = None
@@ -570,12 +581,15 @@ class AlignmentEngine:
     def _fe_submit_batch(self, codes_sel, L: int, B: int, M: int, A: int,
                          use_bt: bool, bt_cuts: int):
         """Stage + dispatch ONE front end (<= B reads of the L bucket):
-        the fused K1 + K2 graph when `use_bt`, else K1 only for the host
-        backtrack.  Returns (lens, handles) without waiting for the
-        device.  On CUDA the upload comes from pinned memory, the chain
-        table (or the anchor counts) is copied into pinned memory
-        asynchronously, and an event recorded after the copy tells
-        _fe_collect when it has landed."""
+        the fused K1 + K2 front end when `use_bt`, else K1 only for the
+        host backtrack.  Returns (lens, handles) without waiting for the
+        device.  On one device with a graph cache (the card's default)
+        the batch is one replay of its key's captured graph
+        (models/fe_graph.py); else the front end's ops run eagerly.  On
+        CUDA the upload comes from pinned memory, the chain table (or
+        the anchor counts) is copied into pinned memory asynchronously,
+        and an event recorded after the copy tells _fe_collect when it
+        has landed."""
         host = self.stage_batch(codes_sel, L, B)
         lens = host["lens"]
         kw = self._fe_kwargs(M, A, bt_cuts)
@@ -588,8 +602,12 @@ class AlignmentEngine:
             self.metrics.add("host_bt_batches", 1)
         # chain DP cell updates this dispatch: B*A anchors x window
         self.metrics.add("chain_cells", float(B) * A * kw["window"])
+        eager = None  # the front end's ops, where `run` replays a graph
         with self.metrics.timer("front_end"):
-            if self.mesh is None:
+            if self.mesh is None and self._fe_graphs is not None:
+                handles, run, eager = self._fe_graph_batch(
+                    host, (B, L, M, A), use_bt, bt_cuts, kw)
+            elif self.mesh is None:
                 fn = front_end_bt if use_bt else front_end_chain
                 dev = self.dev
                 staged, up = self._stage_upload(host, [self.device])
@@ -599,7 +617,7 @@ class AlignmentEngine:
                 def run():
                     return fn(codes_d, lens_d, dev, **up, **kw)
 
-                handles = self._launch(self.device, run, use_bt, bt_cuts,
+                handles = self._launch(self.device, *run(), use_bt, bt_cuts,
                                        staged)
             else:
                 # row by row: each data row's slice on the row's devices
@@ -613,10 +631,9 @@ class AlignmentEngine:
                         devs)
                     rows.append((r, ups, staged))
                 handles = [
-                    self._launch(
-                        self.mesh.devices[r, 0],
-                        lambda r=r, ups=ups: self._mesh_fe(r, ups, **kw),
-                        use_bt, bt_cuts, staged)
+                    self._launch(self.mesh.devices[r, 0],
+                                 *self._mesh_fe(r, ups, **kw), use_bt,
+                                 bt_cuts, staged)
                     for r, ups, staged in rows]
 
                 def run():
@@ -624,27 +641,73 @@ class AlignmentEngine:
         # the last dispatch, for probe_front_end / front_end_roofline
         self._probe_shape = (B, L, M, A)
         self._probe_dispatch = run
+        self._probe_eager = eager or run
         return lens, handles
 
+    def _fe_key(self, shape, use_bt: bool, bt_cuts: int, kw: dict,
+                dev: DeviceIndex) -> tuple:
+        """The graph cache's key of one front-end batch: everything the
+        JAX package's jit treats as static (the device, B, L, M, A, K2 or
+        not, the cuts, an HPC index, every front-end keyword) and the
+        DeviceIndex whose tensors the graph reads."""
+        return (str(self.device), *shape, use_bt, bt_cuts,
+                bool(self.index.flag & 0x1), tuple(sorted(kw.items())),
+                id(dev))
+
+    def _fe_graph_batch(self, host, shape, use_bt: bool, bt_cuts: int,
+                        kw: dict):
+        """One single-device front end as a replay of its key's captured
+        graph: (handles, the probe's replay, the front end run eagerly on
+        the graph's inputs)."""
+        fn = front_end_bt if use_bt else front_end_chain
+        dev = self.dev
+        B, L, M, A = shape
+        staged = self._stage_host(host, self.device.type == "cuda")
+
+        def make_fn(inputs):
+            up = dict(inputs)
+            codes_d, lens_d = up.pop("codes"), up.pop("lens")
+            return lambda: fn(codes_d, lens_d, dev, **up, **kw)
+
+        graph = self._fe_graphs.get(
+            self._fe_key(shape, use_bt, bt_cuts, kw, dev),
+            {"device": str(self.device), "B": B, "L": L, "M": M, "A": A,
+             "use_bt": use_bt, "bt_cuts": bt_cuts},
+            self.device, dev, staged, make_fn)
+        handles = self._fe_graphs.run(
+            graph, staged, self.device,
+            lambda out, aux: self._launch(self.device, out, aux, use_bt,
+                                          bt_cuts, tuple(staged.values()),
+                                          static=True))
+        return handles, graph.probe, graph.fn
+
     @staticmethod
-    def _stage_upload(host: Dict[str, np.ndarray], devices):
-        """Host arrays -> (the staged host tensors, {device: uploads}); on
-        CUDA from pinned memory, without waiting."""
+    def _stage_host(host: Dict[str, np.ndarray], pin: bool):
+        """Host arrays -> host tensors, pinned when `pin` (the source of
+        a CUDA upload that does not wait)."""
         staged = {n: torch.from_numpy(np.ascontiguousarray(a))
                   for n, a in host.items()}
-        if any(d.type == "cuda" for d in devices):
+        if pin:
             staged = {n: t.pin_memory() for n, t in staged.items()}
+        return staged
+
+    @classmethod
+    def _stage_upload(cls, host: Dict[str, np.ndarray], devices):
+        """Host arrays -> (the staged host tensors, {device: uploads}); on
+        CUDA from pinned memory, without waiting."""
+        staged = cls._stage_host(host, any(d.type == "cuda" for d in devices))
         ups = {d: {n: t.to(d, non_blocking=True) for n, t in staged.items()}
                for d in devices}
         return tuple(staged.values()), ups
 
     @staticmethod
-    def _launch(dev: torch.device, run, use_bt: bool, bt_cuts: int,
-                staged) -> _FrontEndHandles:
-        """Run one front end on `dev` and, on CUDA, start copying its
-        result (with K2: the chain table and aux; else the counts) into
-        pinned memory behind an event, without waiting."""
-        out, aux = run()
+    def _launch(dev: torch.device, out, aux, use_bt: bool, bt_cuts: int,
+                staged, static: bool = False) -> _FrontEndHandles:
+        """Hand one front end's results on `dev` to _fe_collect: on CUDA
+        start copying them (with K2: the chain table and aux; else the
+        counts) into pinned memory behind an event, without waiting.
+        `static` outputs (a graph's) are overwritten by its next replay,
+        so the anchor stack that stays on the device is copied too."""
         done = None
         if dev.type == "cuda":
             with torch.cuda.device(dev):
@@ -656,9 +719,13 @@ class AlignmentEngine:
                                         pin_memory=True)
                     out_h.copy_(out, non_blocking=True)
                     out = out_h
+                elif static:
+                    out = out.clone()
                 done = torch.cuda.Event()
                 done.record(torch.cuda.current_stream(dev))
                 aux = aux_h
+        elif static:
+            out, aux = out.clone(), aux.clone()
         return _FrontEndHandles(out, aux, done, staged,
                                 None if use_bt else bt_cuts)
 
@@ -727,9 +794,10 @@ class AlignmentEngine:
 
     def probe_front_end(self, n: int = 10) -> List[float]:
         """Front-end seconds per batch from re-dispatching the last
-        batch: [0] = pipelined (n dispatches, one wait, / n), [1] =
-        blocking (one dispatch and its wait).  The device work only:
-        no staging, no download.  On CUDA each wait is
+        batch as the path dispatches it (on the card one replay of its
+        captured graph): [0] = pipelined (n dispatches, one wait, / n),
+        [1] = blocking (one dispatch and its wait).  The device work
+        only: no staging, no download.  On CUDA each wait is
         torch.cuda.synchronize.  [] until a batch has run."""
         replay = self._probe_dispatch
         if replay is None:

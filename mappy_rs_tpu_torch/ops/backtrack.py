@@ -28,8 +28,17 @@ SEG_LEN = 384  # query spacing between cuts (= pipeline SEG_LEN)
 N_FIXED = 9
 MAX_CUTS = 8  # the kernel's per-walk cut buffer
 
-#: kernel launches since the last reset (plain-version calls not counted)
+#: kernel launches since the last reset (plain-version calls not counted;
+#: a call inside a CUDA-graph capture launches nothing and is not
+#: counted, and each replay of the graph is credited with its launches)
 launches = 0
+
+
+def credit(n: int) -> None:
+    """Count n launches made by replaying a captured CUDA graph."""
+    global launches
+    launches += n
+
 
 _FIELDS = ("rev", "rid", "rpos", "qpos", "span")
 
@@ -147,6 +156,7 @@ def backtrack_chains(anchors: dict, f: torch.Tensor, p: torch.Tensor,
     """Top-K chains per read from the chain DP; int32 [B, K, 9+2*cuts]."""
     global launches
     _check(anchors, f, p, seg_cuts)
+    cuda_build.note("backtrack_chains")
     dev = f.device
     if dev.type == "cpu":
         return backtrack_chains_plain(anchors, f, p, K, seg_cuts, min_cnt,
@@ -174,5 +184,6 @@ def backtrack_chains(anchors: dict, f: torch.Tensor, p: torch.Tensor,
             cuda_build.stream_handle(dev),
         )
     cuda_build.check(err, "backtrack_chains")
-    launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        launches += 1
     return out

@@ -14,8 +14,16 @@ from .chain import ChainParams, chain_scores
 
 C = 128  # window granule, as the Pallas kernel's 128-anchor blocks
 
-#: kernel launches since the last reset (plain-version calls not counted)
+#: kernel launches since the last reset (plain-version calls not counted;
+#: a call inside a CUDA-graph capture launches nothing and is not
+#: counted, and each replay of the graph is credited with its launches)
 launches = 0
+
+
+def credit(n: int) -> None:
+    """Count n launches made by replaying a captured CUDA graph."""
+    global launches
+    launches += n
 
 
 def window_of(window: int) -> int:
@@ -65,6 +73,7 @@ def chain_scores_kernel(anchors: dict, params: ChainParams, window: int = C):
     global launches
     H = window_of(window)
     B, A = _check(anchors)
+    cuda_build.note("chain_dp")
     dev = anchors["rpos"].device
     if dev.type == "cpu":
         return chain_scores(anchors, params, H)
@@ -89,5 +98,6 @@ def chain_scores_kernel(anchors: dict, params: ChainParams, window: int = C):
             f.data_ptr(), p.data_ptr(), cuda_build.stream_handle(dev),
         )
     cuda_build.check(err, "chain_dp")
-    launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        launches += 1
     return f, p

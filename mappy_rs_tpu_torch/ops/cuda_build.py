@@ -9,9 +9,16 @@ Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; the wrappers (ops/chain_kernel.py,
 ops/backtrack.py, ops/extend_kernel.py, ops/traceback.py) raise when
 that is not 0.
+
+``recording()`` counts the calls that K1's and K2's wrappers make on
+one thread inside a block, on either device: the front end's graph
+cache (models/fe_graph.py) records what a capture launches, and credits
+each replay with it.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import os
 import shutil
@@ -124,6 +131,30 @@ def load() -> ctypes.CDLL:
             lib.traceback_walk.argtypes = [vp] * 5 + [ci] * 6 + [vp] * 3
             _lib = lib
         return _lib
+
+
+_rec = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """A Counter of the kernel wrappers' calls (by kernel name) that this
+    thread makes inside the block; blocks nest, the inner one counting
+    alone."""
+    prev = getattr(_rec, "counts", None)
+    _rec.counts = collections.Counter()
+    try:
+        yield _rec.counts
+    finally:
+        _rec.counts = prev
+
+
+def note(name: str) -> None:
+    """Count one call of kernel `name`'s wrapper in this thread's open
+    recording, if any."""
+    counts = getattr(_rec, "counts", None)
+    if counts is not None:
+        counts[name] += 1
 
 
 def check(err: int, name: str) -> None:

@@ -35,10 +35,14 @@ measures the baseline alone (and writes --baseline-file if named).
 Output: one JSON line on stdout with bench.py's keys plus "card"
 (nvidia-smi's name and power limit); bench.py's "#" lines on stderr,
 with the front end's roofline against the H100's 3.35 TB/s and int32
-rate; the whole record (every pass's placement, this process's K1 / K2
-launches during the passes, the baseline's modes and the compute apps
-on the card while its children ran) to --out (default
-chiprun_out/bench.json).
+rate and the front-end CUDA graphs; the whole record (every pass's
+placement, this process's K1 / K2 launches during the passes, the
+baseline's modes and the compute apps on the card while its children
+ran) to --out (default chiprun_out/bench.json), with "fe_graphs": the
+graphs captured in the warm-up ("warmup_captures") and during the
+passes ("captures"), the replays and front-end batches of the passes
+(on one card every batch is a replay; 0 replays off it) and the MB of
+the captured graphs' memory pools.
 
 Not carried over from bench.py, each because it hides a failure or
 works around the TPU's shared backend:
@@ -322,11 +326,19 @@ def run_card(wl: Workload, device: str) -> dict:
         al.warmup(wl.reads[:N_WARM])
         warm_s = time.time() - t0
         _log(f"worker spawn + warmup: {warm_s:.1f}s")
+        warm = al.metrics  # the graphs captured in the warm-up
         cpu0 = time.process_time()
         passes, best, wall = measure(al, wl.payloads, wl.truth,
                                      reset_after_warm=True)
         parent_cpu = time.process_time() - cpu0
         launches = counters(al)
+        graphs = {
+            "warmup_captures": warm.get("fe_graph_captures", 0),
+            "captures": launches["fe_graph_captures"],
+            "replays": launches["fe_graph_replays"],
+            "fe_batches": launches["fe_batches"],
+            "pool_mb": (warm.get("fe_graph_pool_mb", 0.0)
+                        + launches["fe_graph_pool_mb"])}
         probe = al.probe_front_end(N_PROBE)
         roof = al.front_end_roofline()
         metrics = al.metrics
@@ -336,7 +348,8 @@ def run_card(wl: Workload, device: str) -> dict:
             "proc_chunk": al._config.proc_chunk, "index_s": index_s,
             "spawn_warmup_s": warm_s, "passes": passes, "best": best,
             "wall": wall, "parent_cpu_s": parent_cpu, "launches": launches,
-            "probe": probe, "roofline": roof, "metrics": metrics}
+            "fe_graphs": graphs, "probe": probe, "roofline": roof,
+            "metrics": metrics}
 
 
 def run(genome_mb: int = GENOME_MB, n_reads: int = N_READS,
@@ -375,6 +388,7 @@ def run(genome_mb: int = GENOME_MB, n_reads: int = N_READS,
         "card": rec["card"],
     }
     rec["run"] = card
+    rec["fe_graphs"] = card["fe_graphs"]
     rec["passes"] = [{"reads_per_s": r, "seconds": dt, "hit": hit,
                       "placed": ok, "reads": n_reads}
                      for r, dt, hit, ok in card["passes"]]
@@ -444,6 +458,7 @@ def report(rec: dict) -> None:
         f"{len(card['passes']) * n_reads} reads): front_end={fe:.2f} "
         f"extend={ext:.2f} finalize={fin:.2f}; host dp_cells/s="
         f"{m.get('dp_cells_per_sec', 0):.3e}\n"
+        f"# front-end CUDA graphs: {json.dumps(rec['fe_graphs'])}\n"
         f"# parent-process CPU during measurement: "
         f"{card['parent_cpu_s']:.2f}s over {wall:.2f}s wall = "
         f"{card['parent_cpu_s'] / max(wall, 1e-9):.2f} cores (of "

@@ -387,21 +387,33 @@ def map_pass(al, reads: List[str], starts, unique, model: GenomeModel) -> dict:
 
 
 def counters(al) -> dict:
-    """The parent's K1 / K2 launches and the front end's retry and
-    host-backtrack batch counts since the last reset."""
+    """The parent's K1 / K2 launches and the front end's retry,
+    host-backtrack and graph counts since the last reset (the engine
+    counters summed over the children under "classic"), and the
+    parent's captured front-end graphs: one row per key (B, L, M, A,
+    K2 or not, pool MB, replays), so the retried shapes' captures show
+    by their A."""
     from ..ops import backtrack as bt
     from ..ops import chain_kernel as ck
 
     eng = al._engine
-    m = eng.metrics.snapshot()
+    m = al.metrics
     L = eng._bucket_len(READ_LEN)
     A = {b: eng.fe_shapes(L, a_boost=b)[2] for b in (4, 16)}
+    graphs = eng._fe_graphs.stats() if eng._fe_graphs is not None else []
     return {"chain_dp": ck.launches, "backtrack_chains": bt.launches,
             "fe_batches": m.get("fe_batches", 0),
             "retry_batches": {f"A={A[b]}": m.get(f"fe_retry_batches_x{b}", 0)
                               for b in (4, 16)},
             "anchor_overflow_retries": m.get("anchor_overflow_retries", 0),
-            "host_bt_batches": m.get("host_bt_batches", 0)}
+            "host_bt_batches": m.get("host_bt_batches", 0),
+            "fe_graph_captures": m.get("fe_graph_captures", 0),
+            "fe_graph_replays": m.get("fe_graph_replays", 0),
+            "fe_graph_pool_mb": m.get("fe_graph_pool_mb", 0.0),
+            "fe_graphs": graphs,
+            "graph_captures_by_A": {
+                f"A={a}": sum(1 for g in graphs if g["A"] == a)
+                for a in sorted({g["A"] for g in graphs})}}
 
 
 def reset_counters(al) -> None:

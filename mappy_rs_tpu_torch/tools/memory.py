@@ -34,8 +34,12 @@ LIMIT_MB = 200.0
 
 
 def max_rss_mb() -> float:
-    """Peak resident set size of this process (ru_maxrss is KiB on Linux)."""
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+    """Peak resident set size of this process: ru_maxrss (KiB on Linux),
+    or the resident set now where that is higher (Linux raises its
+    high-water mark lazily, so while the set grows ru_maxrss can lag
+    it)."""
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+    return max(peak, rss_mb())
 
 
 def rss_mb() -> float:

@@ -8,21 +8,28 @@ front-end replays, and optionally the host's share.
 The workload is the bench's: a seeded random genome of ``--genome-len``
 bases (32 Mbp) and ``--reads`` simulated reads of ``--len`` bases at
 ``--err`` (1 kb at 5%), mapped with ``--preset``.  One batch of the
-reads' length bucket, at the full batch shape, warms the engine and
-leaves its dispatch behind (``AlignmentEngine._probe_dispatch``); then:
+reads' length bucket, at the full batch shape, warms the engine (on
+the card it captures the batch's CUDA graph) and leaves its dispatch
+behind: ``AlignmentEngine._probe_eager`` runs the front end's ops
+eagerly on the batch's inputs, ``_probe_dispatch`` replays them as the
+path does (one graph replay on the card).  Then:
 
-- ``probe_front_end(N)``: pipelined and blocking seconds per batch;
-- N replays of that dispatch at depth 3 (at most 3 in flight, as the
-  engine's pipeline keeps them) under ``torch.profiler`` (CPU and, on a
-  card, CUDA activity), each replay between two CUDA events.  From the
-  trace (``parse_trace``): device busy ms per batch (kernels, copies
-  and memsets; device-side annotation spans are envelopes of those and
+- ``probe_front_end(N)``: pipelined and blocking seconds per batch, of
+  the path's dispatch (the graph replay on the card);
+- N eager runs at depth 3 (at most 3 in flight, as the engine's
+  pipeline keeps them) under ``torch.profiler`` (CPU and, on a card,
+  CUDA activity), each between two CUDA events.  From the trace
+  (``parse_trace``): device busy ms per batch (kernels, copies and
+  memsets; device-side annotation spans are envelopes of those and
   stay out of the sum), the top device ops by ms per batch, and duty =
   busy / the loop's wall.  If the trace holds no device kernel event,
   the tool says so on its own line and sets those fields to null.
-  From the events: the device span of a replay (its first op to its
-  last, idle gaps inside included), and the device ms of the replay
-  captured as a CUDA graph (the same ops back to back);
+  From the events: the device span of a run (its first op to its
+  last, idle gaps inside included);
+- on the card, the same for N graph replays at depth 3 (``graph``):
+  the pipelined wall per replay, its device span and busy time, and
+  the duty under graphs; ``graph_ms_per_batch`` is the replay's device
+  span;
 - ``--host-profile``: serial ``map_batch`` over the reads in batches
   of B with the engine's stage timers and a cProfile top list of host
   time, then the reads through ``enable_threading(4)`` + ``map_batch``
@@ -111,40 +118,14 @@ def workload(genome_len: int, read_len: int, err: float, n_reads: int,
     return genome, reads
 
 
-def _graph_ms(replay, n: int) -> float:
-    """Device ms of one replay captured as a CUDA graph (n of them in the
-    graph, timed between CUDA events): the same ops back to back, with
-    no host launch gaps."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        replay()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(n):
-            replay()
-    g.replay()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    g.replay()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / n
-
-
-def trace_replays(al, n: int, top: int = 12) -> dict:
-    """Profile n pipelined replays of the engine's last front-end
-    dispatch; the device fields are None off the card."""
+def trace_replays(al, n: int, top: int = 12, replay=None) -> dict:
+    """Profile n pipelined runs of `replay` (default: the engine's last
+    front end, run eagerly); the device fields are None off the card."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     eng = al._engine
-    replay = eng._probe_dispatch
+    replay = replay or eng._probe_eager
     if replay is None:
         raise RuntimeError("no front-end batch has run")
     cuda = eng.device.type == "cuda"
@@ -172,8 +153,7 @@ def trace_replays(al, n: int, top: int = 12) -> dict:
     rec = {"replays": n, "wall_ms_per_batch": 1e3 * wall / n,
            "profiler_device_events": None, "busy_ms_per_batch": None,
            "duty": None, "span_ms_per_batch": None, "top_ops": None,
-           "op_names": None, "event_ms_per_batch": None,
-           "graph_ms_per_batch": None}
+           "op_names": None, "event_ms_per_batch": None}
     if not cuda:
         return rec
     rec["event_ms_per_batch"] = sum(a.elapsed_time(b)
@@ -186,7 +166,21 @@ def trace_replays(al, n: int, top: int = 12) -> dict:
     if not rec["profiler_device_events"]:
         print("torch.profiler recorded no device kernel event: its fields "
               "are null; the CUDA events give the device time", flush=True)
-    rec["graph_ms_per_batch"] = _graph_ms(replay, n)
+    return rec
+
+
+def trace_eager_and_graph(al, n: int, top: int = 12) -> dict:
+    """The eager runs' record, with the graph replays' under "graph" and
+    their device span as "graph_ms_per_batch" (both None where the
+    engine runs no graph: off the card, under a device grid)."""
+    eng = al._engine
+    rec = trace_replays(al, n, top)
+    rec["graph"] = rec["graph_ms_per_batch"] = None
+    if eng._probe_dispatch is not eng._probe_eager:  # a graph replay
+        g = trace_replays(al, n, top, eng._probe_dispatch)
+        g.pop("op_names")
+        rec["graph"] = g
+        rec["graph_ms_per_batch"] = g["event_ms_per_batch"]
     return rec
 
 
@@ -252,14 +246,14 @@ def run(preset: str = "map-ont", n: int = 20, read_len: int = READ_LEN,
     eng.cfg.single_batch_shape = True
     L = eng._bucket_len(max(len(r) for r in reads))
     B = eng.fe_shapes(L)[0]
-    eng.map_batch(reads[:B])  # warm, and leave the dispatch to replay
+    eng.map_batch(reads[:B])  # warm (capture), leave the dispatch behind
     B, L, M, A = eng._probe_shape
     probe = eng.probe_front_end(n)
     rec = {"device": (torch.cuda.get_device_name(eng.device)
                       if eng.device.type == "cuda" else "cpu"),
            "preset": preset, "shape": {"B": B, "L": L, "M": M, "A": A},
            "probe_ms": [1e3 * s for s in probe],
-           **trace_replays(al, n)}
+           **trace_eager_and_graph(al, n)}
     if host:
         rec["host"] = host_profile(al, reads)
     return rec
@@ -269,21 +263,29 @@ def report(rec: dict) -> None:
     """Print the record's numbers as lines."""
     s = rec["shape"]
     print(f"{rec['preset']} [{s['B']}, {s['L']}] (M={s['M']}, A={s['A']}) "
-          f"on {rec['device']}: pipelined wall "
+          f"on {rec['device']}: eager pipelined wall "
           f"{rec['wall_ms_per_batch']:.3f} ms/batch over {rec['replays']} "
-          f"replays (probe_front_end said {rec['probe_ms'][0]:.3f} "
+          f"runs (probe_front_end said {rec['probe_ms'][0]:.3f} "
           f"pipelined, {rec['probe_ms'][1]:.3f} blocking)", flush=True)
     if rec["busy_ms_per_batch"] is not None:
-        print(f"traced device busy {rec['busy_ms_per_batch']:.4f} ms/batch, "
-              f"span {rec['span_ms_per_batch']:.3f} ms/batch, duty "
-              f"{100 * rec['duty']:.2f}% of the traced wall")
+        print(f"eager: traced device busy {rec['busy_ms_per_batch']:.4f} "
+              f"ms/batch, span {rec['span_ms_per_batch']:.3f} ms/batch, "
+              f"duty {100 * rec['duty']:.2f}% of the traced wall")
         print("top device ops (ms/batch):")
         for name, ms in rec["top_ops"]:
             print(f"  {ms:8.4f}  {name[:90]}")
     if rec["event_ms_per_batch"] is not None:
-        print(f"CUDA events: device span {rec['event_ms_per_batch']:.4f} "
-              f"ms per replay; as a CUDA graph "
-              f"{rec['graph_ms_per_batch']:.4f} ms")
+        print("eager: CUDA events: device span "
+              f"{rec['event_ms_per_batch']:.4f} ms per run")
+    g = rec.get("graph")
+    if g:
+        busy = ("not traced" if g["busy_ms_per_batch"] is None else
+                f"busy {g['busy_ms_per_batch']:.4f} ms/batch, duty "
+                f"{100 * g['duty']:.2f}% of the traced wall")
+        print(f"graph: pipelined wall {g['wall_ms_per_batch']:.3f} ms/batch "
+              f"over {g['replays']} replays, device span "
+              f"{g['event_ms_per_batch']:.4f} ms per replay (CUDA events); "
+              f"{busy}")
     h = rec.get("host")
     if h:
         print(f"host: serial {h['serial_reads_per_s']:.1f} reads/s, front "

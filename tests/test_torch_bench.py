@@ -192,6 +192,9 @@ def test_bench_end_to_end(tmp_path, jax_bench):
     assert [p["placed"] for p in rec["passes"]] == [256, 256]
     assert rec["run"]["topology"] == "device_owner"
     assert rec["run"]["procs"] == 2 and rec["run"]["proxies"] == 6
+    # no graph off the card: every front-end batch ran eagerly
+    assert rec["fe_graphs"]["replays"] == 0
+    assert rec["fe_graphs"]["fe_batches"] > 0
     assert set(rec["baseline"]["modes"]) == {f"{len(cpus)} threads",
                                              f"{len(cpus)} procs"}
     stored = json.loads(base_file.read_text())

@@ -575,3 +575,165 @@ def test_memory_soak_on_card(cuda):
     assert rec["cuda_growth_mb"] is not None
     assert memory.check(rec) == [], rec
     assert rec["lines"][-1]["cuda_allocated_mb"] > 0
+
+
+def _graph_vs_eager(al, reads):
+    """The engine's Mappings of `reads` through its CUDA graphs (their
+    keys captured by a first run) and eagerly (no graph cache): equal,
+    every graph-run batch a replay with no capture, equal K1 / K2
+    launches.  Returns the graph run's metrics."""
+    eng = al._engine
+    graphs = eng._fe_graphs
+    assert graphs is not None, "the card engine runs no graphs"
+
+    def run():
+        eng.metrics.reset()
+        n1, n2 = ck.launches, bt.launches
+        out = [al._to_mappings(r)
+               for r in eng.map_batch(reads, cs=True, md=True)]
+        return out, (ck.launches - n1, bt.launches - n2), \
+            eng.metrics.snapshot()
+
+    run()
+    got, l_graph, m = run()
+    eng._fe_graphs = None
+    try:
+        want, l_eager, _ = run()
+    finally:
+        eng._fe_graphs = graphs
+    assert got == want
+    assert m["fe_graph_replays"] == m["fe_batches"] > 0
+    assert m.get("fe_graph_captures", 0) == 0 and l_graph == l_eager
+    return m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset",
+                         ["map-ont", "map-hifi", "sr", "map-pb", "splice"])
+def test_fe_graphs_on_card_match_eager(cuda, preset):
+    rng = np.random.default_rng(51)
+    genome = random_genome(rng, 1_000_000)
+    if preset == "splice":
+        genome, reads, _ = spliced_genes(rng, genome, 8, 0.01)
+    else:
+        n = {"map-ont": 300, "sr": 300}.get(preset, 16)
+        ln = {"map-ont": 1000, "sr": 150}.get(preset, 5000)
+        reads, _ = simulate(rng, genome, n, ln, 0.01)
+    al = mappy_rs_tpu_torch.Aligner(seq=genome, preset=preset, device=cuda)
+    _graph_vs_eager(al, reads)
+    assert all(r["pool_mb"] > 0 for r in al._engine._fe_graphs.stats())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backtrack", ["auto", "off"])
+def test_fe_graph_retries_and_host_backtrack_on_card(cuda, backtrack):
+    """The anchor-budget retries (A x 4, x 16) and the host backtrack
+    replay graphs of their own keys, as the eager path maps them."""
+    rng = np.random.default_rng(31)
+    seg = random_genome(rng, 600)
+    g = random_genome(rng, 100_000) + seg * 40 + random_genome(rng, 100_000)
+    reads, _ = simulate(rng, g[:100_000], 12, 1000, 0.05)
+    reads += [seg, mappy_rs_tpu_torch.revcomp(seg)]
+    al = mappy_rs_tpu_torch.Aligner(seq=g, device=cuda)
+    al._engine.cfg.device_backtrack = backtrack
+    m = _graph_vs_eager(al, reads)
+    assert m["anchor_overflow_retries"] >= 2
+    keys = al._engine._fe_graphs.stats()
+    assert {1024, 4096} <= {r["A"] for r in keys}
+    assert all(r["use_bt"] == (backtrack == "auto") for r in keys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_bt", [True, False])
+def test_fe_graph_batches_in_flight_on_card(cuda, use_bt):
+    """Two batches of one key submitted before either is collected: each
+    collect gives its own batch's chains, as eagerly."""
+    rng = np.random.default_rng(53)
+    genome = random_genome(rng, 1_000_000)
+    reads, _ = simulate(rng, genome, 512, 1000, 0.05)
+    al = mappy_rs_tpu_torch.Aligner(seq=genome, device=cuda)
+    eng = al._engine
+    codes = [encode(r) for r in reads]
+    B, M, A = eng.fe_shapes(1024)
+
+    def both():
+        t1 = eng._fe_submit_batch(codes[:256], 1024, B, M, A, use_bt, 2)[1]
+        t2 = eng._fe_submit_batch(codes[256:], 1024, B, M, A, use_bt, 2)[1]
+        return [eng._fe_collect(t) for t in (t1, t2)]
+
+    got = both()
+    graphs, eng._fe_graphs = eng._fe_graphs, None
+    want = both()
+    eng._fe_graphs = graphs
+    for g_, w in zip(got, want):
+        for a, b in zip(g_, w):
+            np.testing.assert_array_equal(a, b)
+    assert eng.metrics.counters["fe_graph_replays"] == 2
+
+
+@pytest.mark.cuda
+def test_fe_graphs_threads_on_card(cuda):
+    """4 threads replaying shared graphs map as the eager engine, every
+    batch a replay."""
+    rng = np.random.default_rng(55)
+    genome = random_genome(rng, 1_000_000)
+    reads, _ = simulate(rng, genome, 1024, 1000, 0.05)
+    payload = [{"i": i, "seq": s} for i, s in enumerate(reads)]
+    al = mappy_rs_tpu_torch.Aligner(seq=genome, device=cuda)
+    al._config.device_batch_size = 64
+    al.enable_threading(4)
+    try:
+        eng = al._engine
+        graphs, eng._fe_graphs = eng._fe_graphs, None
+        want = {d["i"]: ms for ms, d in al.map_batch(payload)}
+        eng._fe_graphs = graphs
+        eng.metrics.reset()
+        got = {d["i"]: ms for ms, d in al.map_batch(payload)}
+        m = eng.metrics.snapshot()
+    finally:
+        al.enable_threading(0)
+    assert got == want
+    assert m["fe_graph_replays"] == m["fe_batches"] > 0
+
+
+@pytest.mark.cuda
+def test_fe_graph_capture_survives_garbage_collection(cuda, monkeypatch):
+    """Another engine's graphs become garbage in a fresh reference cycle
+    while a new engine captures, and the capturing thread then allocates
+    enough to wake the collector: the capture must not run it (a graph
+    destroyed during a capture voids the capture)."""
+    import gc
+
+    rng = np.random.default_rng(57)
+    genome = random_genome(rng, 300_000)
+    reads, _ = simulate(rng, genome, 16, 1000, 0.05)
+    old = mappy_rs_tpu_torch.Aligner(seq=genome, device=cuda)
+    old._engine.map_batch(reads)
+    assert old._engine._fe_graphs.stats()
+    box = [old._engine._fe_graphs]  # the old graphs' only reference
+    old._engine._fe_graphs = None
+    del old
+    real = pipeline.front_end_bt
+
+    def dropping(*args, **kw):
+        if box and torch.cuda.is_current_stream_capturing():
+            cycle = [box.pop()]
+            cycle.append(cycle)  # only the collector frees the graphs now
+            del cycle
+            _junk = [[i] for i in range(10_000)]  # wakes the collector
+        return real(*args, **kw)
+
+    monkeypatch.setattr(pipeline, "front_end_bt", dropping)
+    cpu = mappy_rs_tpu_torch.Aligner(seq=genome, device="cpu")
+    want = cpu._engine.map_batch(reads, cs=True)
+    al = mappy_rs_tpu_torch.Aligner(seq=genome, device=cuda)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, *threshold[1:])
+    try:
+        got = al._engine.map_batch(reads, cs=True)
+    finally:
+        gc.set_threshold(*threshold)
+    assert not box, "no capture ran"
+    assert al.metrics["fe_graph_captures"] >= 1
+    assert [al._to_mappings(r) for r in got] == \
+        [cpu._to_mappings(r) for r in want]

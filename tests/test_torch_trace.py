@@ -91,7 +91,7 @@ def test_main_on_the_cpu_with_host_profile(tmp_path, monkeypatch, capsys):
     for name in ("profiler_device_events", "busy_ms_per_batch", "duty",
                  "span_ms_per_batch", "top_ops", "op_names",
                  "event_ms_per_batch",
-                 "graph_ms_per_batch"):
+                 "graph_ms_per_batch", "graph"):
         assert rec[name] is None, name
     assert rec["wall_ms_per_batch"] > 0 and min(rec["probe_ms"]) > 0
     host = rec["host"]
