@@ -36,7 +36,7 @@ non-zero):
      (pipelined and blocking seconds per batch) and front_end_roofline()
      (int ops and bytes), with the bytes and ops as shares of 3.35 TB/s
      and of the int32 rate that bound() uses.
- 4b. the front end as one CUDA graph per batch key (models/fe_graph.py):
+ 4b. the front end as one CUDA graph per batch key (models/graphs.py):
      2,048 of phase 4's reads through phase 4's Aligner with its graphs
      and through the private eager switch (engine._fe_graphs = None):
      equal Mappings, no capture in the graph run, every batch a replay,
@@ -69,7 +69,12 @@ non-zero):
      >= 99% within 100 bp and give the host backend's Mappings field
      for field (cs and MD too, through the engine's batch call); K3 and
      K4 must launch under "device", K4 never under "device_dl"; the
-     histogram of K3's launch shapes is logged per backend.
+     histogram of K3's launch shapes is logged per backend.  Every job
+     group is one replay of the CUDA graph of its shape (K3 + K4, or K3;
+     ext_graph_replays == ext_groups), and 1,024 of the reads through the
+     graphs and eagerly (no extension graph cache) give equal Mappings
+     (cs, MD), K3 / K4 launches and K3 shapes; the host ms per group
+     call, graph against eager, and each key's pool MB are logged.
   8. long reads: 64 simulated 100 kb reads at 5% error against phase
      4's genome through enable_threading(4) + map_batch at the default
      config (131,072 bucket, B=8, A=32,768); >= 99% placed (the
@@ -113,13 +118,23 @@ non-zero):
      each through enable_threading(4) + map_batch on phase 4's 8,192
      reads: 0 reads may differ from phase 4's Mappings, K1 launched, K2
      not (the host backtrack, as under the JAX package's mesh), and the
-     sharded Aligner never builds the replicated tables; (b) decision
+     sharded Aligner never builds the replicated tables; every row of
+     every batch is one CUDA graph replay (fe_graph_replays ==
+     fe_batches x rows), 1,024 reads map equally through the rows'
+     graphs and their eager ops, and per [256, 1024] batch the host ms
+     of _fe_submit_batch, graph / eager / eager / graph, and each key's
+     pool MB are logged; (b) decision
      mode, enable_sharding(2, 2) + map_batch_positions over the 8,192
      reads in batches of 512: >= 99% on the read's strand with r_en
-     within 100 bp of its true end, K3 launched, K3 == plain at the
-     batch's shape (J=256, 1024, 1152, W=128; timed eagerly and as a
-     CUDA-graph replay), and 256 reads decided as
-     through the port on a grid of CPU cells; (c) two spawned processes
+     within 100 bp of its true end, K3 launched, each row of each batch
+     one CUDA graph replay, 1,024 decisions equal through the eager
+     step, K3 == plain at the batch's shape (J=256 per peer: every peer
+     extends all of its row's reads, 1024, 1152, W=128; timed eagerly
+     and as a CUDA-graph replay), 256 reads decided as through the
+     port on a grid of CPU cells, and a readfish-like stream of 12
+     micro-batches of 1-512 reads: one capture per row and new B_pad,
+     the new keys' pool MB, decisions equal to the 512-read batches';
+     (c) two spawned processes
      on cuda:0, each with a 2 x 2 grid, joined over Gloo
      (parallel/multihost.py), run the decision step on 512 reads: the
      gathered results == a one-process 4 x 2 grid's, array for array.
@@ -703,14 +718,15 @@ def front_end_probes(al, reads) -> dict:
     return {"probe_s": probe, "roofline": roof, **shares}
 
 
-def check_replays(m: dict, label: str) -> None:
-    """Every single-device front-end batch of a run was one replay of a
-    captured CUDA graph (`m`: engine metrics of the run)."""
+def check_replays(m: dict, label: str, rows: int = 1) -> None:
+    """Every front-end batch of a run was one replay of a captured CUDA
+    graph per row (`m`: engine metrics of the run; `rows`: a grid's
+    data rows, each on one device)."""
     if m.get("fe_batches", 0) <= 0 or \
-            m.get("fe_graph_replays", 0) != m["fe_batches"]:
+            m.get("fe_graph_replays", 0) != m["fe_batches"] * rows:
         raise AssertionError(
             f"{label}: {m.get('fe_graph_replays', 0)} graph replays for "
-            f"{m.get('fe_batches', 0)} front-end batches")
+            f"{m.get('fe_batches', 0)} front-end batches of {rows} rows")
 
 
 # -------------------------------------------------------------- phase 4b
@@ -718,13 +734,14 @@ N_GRAPH_READS = 2048  # phase 4's reads mapped with graphs and eagerly
 N_GRAPH_TIMED = 24    # [256, 1024] batches timed per mode
 
 
-def graph_vs_eager(al, reads, label: str) -> dict:
+def graph_vs_eager(al, reads, label: str, rows: int = 1) -> dict:
     """The engine's Mappings of `reads` (one map_batch) through its
     graphs and eagerly (the private switch: no graph cache), with the K1
     / K2 launches and the engine metrics of each run; raises unless the
-    Mappings are equal and every graph-run batch was a replay.  The
-    graphs of the reads' keys are captured first, so the graph run
-    captures nothing and launches what the eager run launches."""
+    Mappings are equal and every graph-run batch was a replay (one per
+    row under a grid of `rows` one-device rows).  The graphs of the
+    reads' keys are captured first, so the graph run captures nothing
+    and launches what the eager run launches."""
     from mappy_rs_tpu_torch.ops import backtrack as bt
     from mappy_rs_tpu_torch.ops import chain_kernel as ck
 
@@ -760,7 +777,7 @@ def graph_vs_eager(al, reads, label: str) -> dict:
     log(f"{label}: graph vs eager: {json.dumps(rec)}")
     if n_diff:
         raise AssertionError(f"{label}: {n_diff} reads differ graph vs eager")
-    check_replays(m_graph, label)
+    check_replays(m_graph, label, rows)
     if rec["fe_graph_captures"] or l_graph != l_eager or \
             rec["fe_batches"] != rec["eager_fe_batches"]:
         raise AssertionError(f"{label}: graph run {rec}")
@@ -1221,10 +1238,18 @@ def phase_ext_slice(al, reads, starts) -> dict:
         placed = sum(1 for i, s in enumerate(starts)
                      if out[i] and abs(out[i][0][5] - s) < 100)
         groups = m.get("ext_groups", 0)
+        if backend != "host" and \
+                m.get("ext_graph_replays", 0) != groups:
+            raise AssertionError(
+                f"{backend}: {m.get('ext_graph_replays', 0)} extension "
+                f"graph replays for {groups:.0f} job groups")
         per_group = m.get("ext_download_bytes", 0) / groups if groups else 0.0
         runs[backend] = {"out": out, "wall_s": wall,
                          "reads_per_s": len(reads) / wall, "placed": placed,
                          "launches": launches, "groups": groups,
+                         "ext_graph_replays": m.get("ext_graph_replays", 0),
+                         "ext_graph_captures": m.get("ext_graph_captures",
+                                                     0),
                          "k3_shapes": [[*k, n] for k, n in shapes],
                          "dl_bytes_per_group": per_group,
                          "metrics": {k: m[k] for k in m if k.startswith("time_")}}
@@ -1276,7 +1301,93 @@ def phase_ext_slice(al, reads, starts) -> dict:
     log(f"cs + MD comparison: {time.perf_counter() - t0:.1f} s")
     for r in runs.values():
         del r["out"]
+    for backend in ("device", "device_dl"):
+        runs[backend]["graph_vs_eager"] = ext_graph_vs_eager(
+            al, reads[:N_EXT_EAGER], backend)
+    runs["graph_keys"] = ext_graph_keys(eng)
     return runs
+
+
+N_EXT_EAGER = 1024  # phase 7's reads held graph vs eager per backend
+
+
+def ext_graph_vs_eager(al, reads, backend: str) -> dict:
+    """`reads` through the engine's batch call (cs, MD) under `backend`,
+    through its extension graphs (the keys these reads meet captured
+    first) and eagerly (no extension graph cache): equal Mappings, every
+    job group a replay and no capture in the graph run, equal K3 / K4
+    launches and K3 shapes; the host ms per group call (it waits for
+    its group's outputs), graph against eager."""
+    from mappy_rs_tpu_torch.models import pipeline as pl
+    from mappy_rs_tpu_torch.ops import extend_kernel as ek
+    from mappy_rs_tpu_torch.ops import traceback as tb
+
+    eng = al._engine
+    name = ("extend_traceback_device" if backend == "device"
+            else "extend_dp_device")
+    real = getattr(pl, name)
+    calls = []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        res = real(*a, **kw)
+        calls.append(time.perf_counter() - t0)
+        return res
+
+    def run():
+        eng.metrics.reset()
+        calls.clear()
+        ek.launches = tb.launches = 0
+        ek.shapes.clear()
+        out = [[mapping_fields(m) for m in al._to_mappings(r)]
+               for r in eng.map_batch(reads, cs=True, md=True)]
+        return (out, {"extend_dp": ek.launches, "traceback": tb.launches},
+                dict(ek.shapes), eng.metrics.snapshot(), list(calls))
+
+    graphs = eng._ext_graphs
+    eng.cfg.extension_backend = backend
+    setattr(pl, name, timed)
+    try:
+        run()
+        got, l_g, s_g, m_g, c_g = run()
+        eng._ext_graphs = None
+        try:
+            want, l_e, s_e, m_e, c_e = run()
+        finally:
+            eng._ext_graphs = graphs
+    finally:
+        setattr(pl, name, real)
+        eng.cfg.extension_backend = "auto"
+    n_diff = sum(a != b for a, b in zip(got, want))
+    rec = {"reads": len(reads), "differ": n_diff, "groups": m_g["ext_groups"],
+           "replays": m_g.get("ext_graph_replays", 0),
+           "captures": m_g.get("ext_graph_captures", 0),
+           "launches_graph": l_g, "launches_eager": l_e,
+           # medians: a collection of this process's large heap can land
+           # in any one call
+           "host_ms_per_group_graph": 1e3 * float(np.median(c_g)),
+           "host_ms_per_group_eager": 1e3 * float(np.median(c_e)),
+           "host_ms_per_group_graph_mean": 1e3 * float(np.mean(c_g)),
+           "host_ms_per_group_eager_mean": 1e3 * float(np.mean(c_e))}
+    log(f"{backend}: graph vs eager on {len(reads)} reads (cs, MD): "
+        f"{json.dumps(rec)}")
+    if n_diff or rec["replays"] != rec["groups"] or rec["captures"] or \
+            l_g != l_e or s_g != s_e or m_e["ext_groups"] != rec["groups"]:
+        raise AssertionError(f"{backend}: graph vs eager {rec}, shapes "
+                             f"{s_g} vs {s_e}")
+    return rec
+
+
+def ext_graph_keys(eng) -> list:
+    """The extension graphs' keys: shape, pool MB, replays; logged."""
+    rows = eng._ext_graphs.stats()
+    for r in rows:
+        log(f"extension graph Q={r['QMAX']} T={r['TMAX']} W={r['W']} "
+            f"J={r['J']} {'K3+K4' if 'OPS' in r else 'K3'}: pool "
+            f"{r['pool_mb']:.1f} MB, {r['replays']} replays")
+    log(f"extension graphs: {len(rows)} keys, pools "
+        f"{sum(r['pool_mb'] for r in rows):.1f} MB in all")
+    return rows
 
 
 # --------------------------------------------------------------- phase 8
@@ -1629,6 +1740,7 @@ def phase_presets(genome: str) -> dict:
 # -------------------------------------------------------------- phase 11
 DEC_BATCH = 512    # reads per map_batch_positions call (a readfish batch)
 N_DEC_CPU = 256    # decisions held against the port on CPU cells
+N_DEC_EAGER = 1024  # decisions held graph vs eager
 N_MH_READS = 512   # reads of the two-process decision step
 MH_TIMEOUT = 300   # seconds a two-process child may take
 
@@ -1652,6 +1764,8 @@ def mesh_run(al, reads, threaded: dict, label: str) -> dict:
     al.enable_threading(0)
     n_diff = sum(1 for i in threaded if out.get(i) != threaded[i])
     host_bt = al.metrics.get("host_bt_batches", 0)
+    # every row of every batch one replay (every cell is on cuda:0)
+    check_replays(al.metrics, label, al._engine.mesh.shape["data"])
     rate = len(reads) / wall
     log(f"{label}: {len(reads)} reads in {wall:.3f} s = {rate:.1f} reads/s "
         f"(4 threads); {n_diff} reads differ from phase 4; launches "
@@ -1662,8 +1776,50 @@ def mesh_run(al, reads, threaded: dict, label: str) -> dict:
             or host_bt <= 0:
         raise AssertionError(f"{label}: launches {launches}, host "
                              f"backtrack batches {host_bt}")
-    return {"reads_per_s": rate, "wall_s": wall, "differ": n_diff,
-            "launches": launches, "host_bt_batches": host_bt}
+    rec = {"reads_per_s": rate, "wall_s": wall, "differ": n_diff,
+           "launches": launches, "host_bt_batches": host_bt,
+           "fe_batches": al.metrics["fe_batches"],
+           "fe_graph_replays": al.metrics["fe_graph_replays"]}
+    rec.update(grid_graphs(al, reads, label))
+    return rec
+
+
+N_GRID_EAGER = 1024  # phase 11a's reads held graph vs eager per grid
+N_GRID_TIMED = 8     # grid front-end batches timed per mode
+
+
+def grid_graphs(al, reads, label: str) -> dict:
+    """The grid's rows as graphs against their eager ops: 1,024 of the
+    reads through both (graph_vs_eager), the captured keys with their
+    pools' MB, and per [256, 1024] batch the host ms of _fe_submit_batch
+    over all rows, its device span and the wall, graph / eager / eager /
+    graph."""
+    from mappy_rs_tpu_torch.utils.seqcodes import encode
+
+    eng = al._engine
+    rows = eng.mesh.shape["data"]
+    rec = {"graph_vs_eager": graph_vs_eager(al, reads[:N_GRID_EAGER], label,
+                                            rows)}
+    rec["keys"] = eng._fe_graphs.stats()
+    for r in rec["keys"]:
+        log(f"{label}: graph key B={r['B']} A={r['A']} grid={r.get('grid')}: "
+            f"pool {r['pool_mb']:.1f} MB, {r['replays']} replays")
+    codes = [encode(r) for r in reads[:256]]
+    graphs = eng._fe_graphs
+    times = {"graph": [], "eager": []}
+    for mode in ("graph", "eager", "eager", "graph"):
+        eng._fe_graphs = graphs if mode == "graph" else None
+        try:
+            times[mode].append(time_submits(eng, codes, N_GRID_TIMED))
+        finally:
+            eng._fe_graphs = graphs
+    rec["times"] = times
+    for mode, t in times.items():
+        log(f"{label} [256, 1024] {mode}: host ms per _fe_submit_batch "
+            f"{[round(x['host_ms'], 3) for x in t]}, device span ms "
+            f"{[round(x['device_ms'], 3) for x in t]}, wall ms per batch "
+            f"{[round(x['wall_ms_per_batch'], 3) for x in t]}")
+    return rec
 
 
 def phase_mesh(al, genome, reads, threaded: dict, rate4: float) -> dict:
@@ -1710,22 +1866,71 @@ def phase_decisions(al, reads, ends, rev) -> dict:
     from mappy_rs_tpu_torch.parallel import mesh as pm
 
     al.enable_sharding(2, 2, devices=["cuda:0"] * 4)
-    # the first batch uploads the shards; keep its K3 inputs
+    if al._mesh.graph_rows(al._dec_graphs) != frozenset({0, 1}):
+        raise AssertionError("decision mode on cuda:0 cells runs no graphs")
+    # the first batch uploads the shards and captures the rows' graphs;
+    # keep the K3 inputs of its first (eager, warm-up) call, cloned: the
+    # capture's call reads buffers that every replay overwrites
     captured = []
     k3 = pm.extend_dp_kernel
-    pm.extend_dp_kernel = lambda *a: captured.append(a) or k3(*a)
+
+    def keep(*a):
+        if not captured and not torch.cuda.is_current_stream_capturing():
+            captured.append(tuple(x.clone() if torch.is_tensor(x) else x
+                                  for x in a))
+        return k3(*a)
+
+    pm.extend_dp_kernel = keep
     try:
         al.map_batch_positions(reads[:DEC_BATCH])
     finally:
         pm.extend_dp_kernel = k3
     torch.cuda.synchronize()
     ek.launches = 0
+    al.reset_metrics()
     t0 = time.perf_counter()
-    dec = []
+    dec, calls = [], []
     for s in range(0, len(reads), DEC_BATCH):
+        t1 = time.perf_counter()
         dec += al.map_batch_positions(reads[s:s + DEC_BATCH])
+        calls.append(time.perf_counter() - t1)
     wall = time.perf_counter() - t0
     launches = ek.launches
+    m = al.metrics
+    n_batches = len(calls)
+    if m.get("dec_graph_replays", 0) != 2 * n_batches:
+        raise AssertionError(f"decision mode: {m.get('dec_graph_replays')} "
+                             f"replays for {n_batches} batches of 2 rows")
+    keys = al._dec_graphs.stats()
+    for r in keys:
+        log(f"decision graph row={r['row']} B={r['B']} L={r['L']}: pool "
+            f"{r['pool_mb']:.1f} MB, {r['replays']} replays, "
+            f"{r['launches']} per replay")
+    # the same reads' decisions through the eager step (no graph cache)
+    graphs = al._dec_graphs
+    al._dec_graphs, al._sharded_steps = None, {}
+    al.map_batch_positions(reads[:DEC_BATCH])  # warm
+    eager, calls_e = [], []
+    for s in range(0, N_DEC_EAGER, DEC_BATCH):
+        t1 = time.perf_counter()
+        eager += al.map_batch_positions(reads[s:s + DEC_BATCH])
+        calls_e.append(time.perf_counter() - t1)
+    al._dec_graphs, al._sharded_steps = graphs, {}
+    n_eager_diff = sum(1 for a, b in zip(dec[:N_DEC_EAGER], eager) if a != b)
+    host = {"graph_ms_per_batch": 1e3 * float(np.median(calls)),
+            "eager_ms_per_batch": 1e3 * float(np.median(calls_e)),
+            "graph_ms_per_batch_mean": 1e3 * float(np.mean(calls)),
+            "eager_ms_per_batch_mean": 1e3 * float(np.mean(calls_e))}
+    log(f"decision mode graph vs eager on {N_DEC_EAGER} reads: "
+        f"{n_eager_diff} differ; ms per map_batch_positions call of "
+        f"{DEC_BATCH}: {json.dumps(host)}; captures "
+        f"{m.get('dec_graph_captures', 0):.0f} in the timed run, "
+        f"{len(keys)} keys, pools "
+        f"{sum(r['pool_mb'] for r in keys):.1f} MB")
+    if n_eager_diff:
+        raise AssertionError(f"decision mode: {n_eager_diff} decisions "
+                             "differ graph vs eager")
+    stream = decision_stream(al, reads, dec)
     right = sum(1 for d, e, rv in zip(dec, ends, rev)
                 if d is not None and d["strand"] == (-1 if rv else 1)
                 and abs(d["r_en"] - e) < 100)
@@ -1777,12 +1982,65 @@ def phase_decisions(al, reads, ends, rev) -> dict:
         raise AssertionError(f"decision mode: {n_diff} reads differ card vs CPU")
     return {"decisions_per_s": rate, "wall_s": wall, "right": right,
             "k3_launches": launches, "k3_decision_shape": shape,
-            "cpu_differ": n_diff}
+            "cpu_differ": n_diff, "graph_keys": keys,
+            "dec_graph_replays": m.get("dec_graph_replays", 0),
+            "eager_differ": n_eager_diff, "stream": stream, **host}
+
+
+#: phase 11b's readfish-like stream: micro-batch sizes (reads per call)
+STREAM_SIZES = (1, 7, 64, 100, 512, 3, 256, 33, 512, 7, 100, 1)
+
+
+def decision_stream(al, reads, dec) -> dict:
+    """Micro-batches of varying size through map_batch_positions, as a
+    readfish stream sends them: one capture per row and distinct B_pad
+    (as the JAX package compiles one executable per shape), the pools'
+    MB, the calls' ms, and every decision equal to the 512-read batches'.
+    The cache's pools stay within its budget (api.py DEC_GRAPH_BUDGET_MB)
+    and the key captured last."""
+    import torch
+
+    before = {(r["row"], r["B"], r["L"]) for r in al._dec_graphs.stats()}
+    reserved0 = torch.cuda.memory_reserved()
+    al.reset_metrics()
+    out, ms, s0 = [], [], 0
+    for n in STREAM_SIZES:
+        t0 = time.perf_counter()
+        out += al.map_batch_positions(reads[s0:s0 + n])
+        ms.append(1e3 * (time.perf_counter() - t0))
+        s0 += n
+    m = al.metrics
+    new = [r for r in al._dec_graphs.stats()
+           if (r["row"], r["B"], r["L"]) not in before]
+    rec = {"sizes": list(STREAM_SIZES), "ms_per_call": ms,
+           "captures": m.get("dec_graph_captures", 0),
+           "replays": m.get("dec_graph_replays", 0),
+           "new_keys": [(r["row"], r["B"], r["L"], r["pool_mb"]) for r in new],
+           "pool_mb_new": sum(r["pool_mb"] for r in new),
+           "pool_mb_cached": al._dec_graphs.pool_mb(),
+           "budget_mb": al._dec_graphs.budget_mb,
+           "evictions": m.get("dec_graph_evictions", 0),
+           "reserved_mb_grown":
+               (torch.cuda.memory_reserved() - reserved0) / 2**20,
+           "differ": sum(1 for a, b in zip(out, dec) if a != b)}
+    log(f"decision stream: {json.dumps(rec)}")
+    # each capture is a new key, or one that an eviction took and that
+    # came back
+    captures_ok = (len(new) <= rec["captures"]
+                   <= len(new) + rec["evictions"])
+    within = rec["pool_mb_cached"] <= rec["budget_mb"] + max(
+        (r[3] for r in rec["new_keys"]), default=0)
+    if rec["differ"] or rec["replays"] != 2 * len(STREAM_SIZES) or \
+            not captures_ok or not within:
+        raise AssertionError(f"decision stream: {rec}")
+    return rec
 
 
 def run_decision_step(mesh, index, opt, codes, lens) -> dict:
     """map_batch_positions' step for codes' L bucket on `mesh`, on the
-    shards of `index` placed there: the gathered results."""
+    shards of `index` placed there, its rows of one card as graphs: the
+    gathered results."""
+    from mappy_rs_tpu_torch.models.graphs import GraphCache
     from mappy_rs_tpu_torch.ops.chain import ChainParams
     from mappy_rs_tpu_torch.ops.extend import ExtendParams
     from mappy_rs_tpu_torch.parallel.mesh import (P, build_sharded_map_step,
@@ -1792,6 +2050,7 @@ def run_decision_step(mesh, index, opt, codes, lens) -> dict:
                                                        put_global,
                                                        put_global_tree,
                                                        shard_specs_for_index)
+    from mappy_rs_tpu_torch.utils.metrics import EngineMetrics
 
     k, L = index.k, codes.shape[1]
     cp = ChainParams(
@@ -1804,7 +2063,8 @@ def run_decision_step(mesh, index, opt, codes, lens) -> dict:
     step = build_sharded_map_step(
         mesh, k, index.w, max_minimizers=max(64, L // 5),
         max_anchors=max(128, L // 4), chain_params=cp, ext_params=ep,
-        mid_occ=opt.mid_occ, chain_window=32, ext_window=128)
+        mid_occ=opt.mid_occ, chain_window=32, ext_window=128,
+        graphs=GraphCache(EngineMetrics(), "dec_graph"))
     shards = put_global_tree(
         device_shards(shard_index_by_key_range(index, mesh.shape["index"])),
         mesh, shard_specs_for_index())

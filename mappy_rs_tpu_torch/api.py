@@ -48,6 +48,11 @@ from .ops.regions import Region
 from .runtime.batch import AlignmentBatchResultIter, WorkerPool
 
 CIGAR_CHARS = "MIDNSHP=X"
+#: MB of CUDA-graph pools that decision mode keeps cached.  It captures
+#: one graph per row and batch shape (about 2 MB per read of the row at
+#: L = 1,024), and a readfish stream's batch sizes vary, so the least
+#: recently used shapes leave the cache past this (models/graphs.py).
+DEC_GRAPH_BUDGET_MB = 4096
 
 
 class Strand(enum.Enum):
@@ -580,12 +585,24 @@ class Aligner:
 
         Enables :meth:`map_batch_positions`, the device-only
         position/score fast path (readfish-style decisions without
-        CIGARs)."""
+        CIGARs).  On the card each row whose cells sit on one device
+        runs a batch as one CUDA graph replay (one capture per row and
+        batch shape, DEC_GRAPH_BUDGET_MB of them cached; engine counters
+        ``dec_graph_*``); a row spanning several cards runs its ops
+        eagerly."""
+        from .models.graphs import GraphCache
         from .parallel.mesh import (device_shards, make_mesh, rows_of,
                                     shard_index_by_key_range)
 
         n_data = rows_of(n_data, n_index, devices)
         self._mesh = make_mesh(n_data, n_index, devices)
+        # the decision steps' graphs, one per (row, B_row, L), for the
+        # rows of self._mesh.graph_rows (none on the CPU), their pools
+        # bounded by DEC_GRAPH_BUDGET_MB.  Private: a caller sets None
+        # (before the first batch of an L) only to compare with the
+        # eager path.
+        self._dec_graphs = GraphCache(self._engine.metrics, "dec_graph",
+                                      budget_mb=DEC_GRAPH_BUDGET_MB)
         self._shards_np = device_shards(
             shard_index_by_key_range(self._index, n_index))
         self._shards_dev = None
@@ -646,7 +663,7 @@ class Aligner:
                 max_minimizers=max(64, L // 5),
                 max_anchors=max(128, L // 4),
                 chain_params=cp, ext_params=ep, mid_occ=opt.mid_occ,
-                chain_window=32, ext_window=128,
+                chain_window=32, ext_window=128, graphs=self._dec_graphs,
             )
             self._sharded_steps[L] = step
 

@@ -111,11 +111,13 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     ["cuda:0"] * 4 on one card); by default n distinct cards."""
     from .api import Aligner
     from .index.index import resolve_device
+    from .models.graphs import GraphCache
     from .ops.extend import ExtendParams
     from .parallel.mesh import (P, build_sharded_map_step, device_shards,
                                 make_mesh, shard_index_by_key_range)
     from .parallel.multihost import (gather_results, put_global,
                                      put_global_tree, shard_specs_for_index)
+    from .utils.metrics import EngineMetrics
 
     al_device = str(resolve_device(devices[0] if devices else "cuda"))
     idx, opt, codes, lens, contigs, reads = _workload("cpu")
@@ -131,7 +133,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     step = build_sharded_map_step(
         mesh, idx.k, idx.w, max_minimizers=64, max_anchors=128,
         chain_params=_chain_params(idx, opt), ext_params=ep,
-        mid_occ=int(opt.mid_occ), chain_window=16, ext_window=64)
+        mid_occ=int(opt.mid_occ), chain_window=16, ext_window=64,
+        graphs=GraphCache(EngineMetrics(), "dec_graph"))
     nb = max(n_data * 2, 8)
     codes_b = np.tile(codes, (nb // B + 1, 1))[:nb]
     lens_b = np.tile(lens, nb // B + 1)[:nb]

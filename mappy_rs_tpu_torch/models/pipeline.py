@@ -39,6 +39,14 @@ or, with the key table sharded by key range over the row's "index"
 peers, ``make_sharded_front_end`` (count psum, per-shard expansion,
 anchor all_gather and re-sort, K1).  Everything after the front end is
 the single-device path's, so the Mappings are the same.
+
+CUDA graphs (models/graphs.py), the JAX package's one executable per
+static shape: on the card each front-end batch is one replay of the
+graph of its key, and so is each grid row whose cells all sit on one
+device (a row spanning several cards runs its ops eagerly: a graph
+captures on one device; the layout decides at ``enable_mesh``).  Each
+"device" / "device_dl" job group is one replay of the graph of its
+group shape (K3 + K4, or K3).
 """
 from __future__ import annotations
 
@@ -74,7 +82,7 @@ from ..ops.regions import (
 from ..ops.sketch import compress_hpc, hpc_spans, sketch_compact
 from ..utils.metrics import EngineMetrics
 from ..utils.seqcodes import encode
-from .fe_graph import FrontEndGraphs
+from .graphs import GraphCache
 
 # region part CIGARs are packed int32 (len<<4|op) arrays end-to-end
 # (the extension engines' wire format); this is the canonical "empty"
@@ -304,12 +312,14 @@ class AlignmentEngine:
         self._probe_shape: Optional[Tuple[int, int, int, int]] = None
         self._probe_dispatch = None
         self._probe_eager = None
-        # the single-device front end's captured CUDA graphs, one per
-        # batch key (models/fe_graph.py); None runs its ops eagerly, as on
-        # the CPU.  Private: a caller sets None only to compare with the
-        # eager path.
-        self._fe_graphs = (FrontEndGraphs(self.metrics)
-                           if self.device.type == "cuda" else None)
+        # the front end's captured CUDA graphs, one per batch key (and
+        # grid row), and the device extension's, one per job-group shape
+        # (models/graphs.py); None runs the ops eagerly, as on the CPU.
+        # Private: a caller sets None only to compare with the eager path.
+        cuda = self.device.type == "cuda"
+        self._fe_graphs = GraphCache(self.metrics) if cuda else None
+        self._ext_graphs = (GraphCache(self.metrics, "ext_graph") if cuda
+                            else None)
         # optional device grid (enable_mesh): the front end runs row by
         # row through _mesh_fe; everything downstream is unchanged
         self.mesh = None
@@ -583,9 +593,10 @@ class AlignmentEngine:
         """Stage + dispatch ONE front end (<= B reads of the L bucket):
         the fused K1 + K2 front end when `use_bt`, else K1 only for the
         host backtrack.  Returns (lens, handles) without waiting for the
-        device.  On one device with a graph cache (the card's default)
-        the batch is one replay of its key's captured graph
-        (models/fe_graph.py); else the front end's ops run eagerly.  On
+        device.  With a graph cache (the card's default) the batch is one
+        replay of its key's captured graph (models/graphs.py), and under
+        a grid each row whose cells sit on one device is one replay of
+        its row's graph; else the front end's ops run eagerly.  On
         CUDA the upload comes from pinned memory, the chain table (or
         the anchor counts) is copied into pinned memory asynchronously,
         and an event recorded after the copy tells _fe_collect when it
@@ -603,83 +614,108 @@ class AlignmentEngine:
         # chain DP cell updates this dispatch: B*A anchors x window
         self.metrics.add("chain_cells", float(B) * A * kw["window"])
         eager = None  # the front end's ops, where `run` replays a graph
+        shape = (B, L, M, A)
         with self.metrics.timer("front_end"):
-            if self.mesh is None and self._fe_graphs is not None:
-                handles, run, eager = self._fe_graph_batch(
-                    host, (B, L, M, A), use_bt, bt_cuts, kw)
-            elif self.mesh is None:
+            if self.mesh is None:
                 fn = front_end_bt if use_bt else front_end_chain
                 dev = self.dev
-                staged, up = self._stage_upload(host, [self.device])
-                up = dict(up[self.device])
-                codes_d, lens_d = up.pop("codes"), up.pop("lens")
 
-                def run():
-                    return fn(codes_d, lens_d, dev, **up, **kw)
+                def make_fn(up):
+                    up = dict(up)
+                    codes_d, lens_d = up.pop("codes"), up.pop("lens")
+                    return lambda: fn(codes_d, lens_d, dev, **up, **kw)
 
-                handles = self._launch(self.device, *run(), use_bt, bt_cuts,
-                                       staged)
+                if self._fe_graphs is not None:
+                    handles, run, eager = self._fe_graph_batch(
+                        host, shape, use_bt, bt_cuts, kw, self.device, dev,
+                        make_fn)
+                else:
+                    staged, up = self._stage_upload(host, [self.device])
+                    run = make_fn(up[self.device])
+                    handles = self._launch(self.device, *run(), use_bt,
+                                           bt_cuts, staged)
             else:
-                # row by row: each data row's slice on the row's devices
-                nd = self.mesh.shape["data"]
-                Bp = B // nd
-                rows = []
-                for r in range(nd):
-                    devs = self.mesh.group(r).distinct
-                    staged, ups = self._stage_upload(
-                        {n: a[r * Bp:(r + 1) * Bp] for n, a in host.items()},
-                        devs)
-                    rows.append((r, ups, staged))
-                handles = [
-                    self._launch(self.mesh.devices[r, 0],
-                                 *self._mesh_fe(r, ups, **kw), use_bt,
-                                 bt_cuts, staged)
-                    for r, ups, staged in rows]
-
-                def run():
-                    return [self._mesh_fe(r, ups, **kw) for r, ups, _ in rows]
+                handles, run, eager = self._fe_grid_batch(
+                    host, shape, use_bt, bt_cuts, kw)
         # the last dispatch, for probe_front_end / front_end_roofline
-        self._probe_shape = (B, L, M, A)
+        self._probe_shape = shape
         self._probe_dispatch = run
         self._probe_eager = eager or run
         return lens, handles
 
     def _fe_key(self, shape, use_bt: bool, bt_cuts: int, kw: dict,
-                dev: DeviceIndex) -> tuple:
+                owner, device: Optional[torch.device] = None,
+                grid: tuple = ()) -> tuple:
         """The graph cache's key of one front-end batch: everything the
         JAX package's jit treats as static (the device, B, L, M, A, K2 or
-        not, the cuts, an HPC index, every front-end keyword) and the
-        DeviceIndex whose tensors the graph reads."""
-        return (str(self.device), *shape, use_bt, bt_cuts,
+        not, the cuts, an HPC index, every front-end keyword), the
+        tables whose tensors the graph reads (`owner`: the DeviceIndex,
+        or a grid's shards) and, for a grid row, the grid's shape and the
+        row where the row reads blocks of its own (`grid`)."""
+        return (str(device or self.device), *shape, use_bt, bt_cuts,
                 bool(self.index.flag & 0x1), tuple(sorted(kw.items())),
-                id(dev))
+                id(owner), *grid)
 
     def _fe_graph_batch(self, host, shape, use_bt: bool, bt_cuts: int,
-                        kw: dict):
-        """One single-device front end as a replay of its key's captured
-        graph: (handles, the probe's replay, the front end run eagerly on
-        the graph's inputs)."""
-        fn = front_end_bt if use_bt else front_end_chain
-        dev = self.dev
+                        kw: dict, device: torch.device, owner, make_fn,
+                        grid: tuple = ()):
+        """One front end (a batch, or a grid row's slice of it) on
+        `device` as a replay of its key's captured graph, ``make_fn``
+        giving the front end over the static inputs: (handles, the
+        probe's replay, the front end run eagerly on the graph's
+        inputs)."""
         B, L, M, A = shape
-        staged = self._stage_host(host, self.device.type == "cuda")
-
-        def make_fn(inputs):
-            up = dict(inputs)
-            codes_d, lens_d = up.pop("codes"), up.pop("lens")
-            return lambda: fn(codes_d, lens_d, dev, **up, **kw)
-
+        staged = self._stage_host(host, device.type == "cuda")
         graph = self._fe_graphs.get(
-            self._fe_key(shape, use_bt, bt_cuts, kw, dev),
-            {"device": str(self.device), "B": B, "L": L, "M": M, "A": A,
-             "use_bt": use_bt, "bt_cuts": bt_cuts},
-            self.device, dev, staged, make_fn)
+            self._fe_key(shape, use_bt, bt_cuts, kw, owner, device, grid),
+            {"device": str(device), "B": len(host["lens"]), "L": L, "M": M,
+             "A": A, "use_bt": use_bt, "bt_cuts": bt_cuts,
+             **({"grid": grid} if grid else {})},
+            device, owner, staged, make_fn)
         handles = self._fe_graphs.run(
-            graph, staged, self.device,
-            lambda out, aux: self._launch(self.device, out, aux, use_bt,
+            graph, staged, device,
+            lambda out, aux: self._launch(device, out, aux, use_bt,
                                           bt_cuts, tuple(staged.values()),
                                           static=True))
         return handles, graph.probe, graph.fn
+
+    def _fe_grid_batch(self, host, shape, use_bt: bool, bt_cuts: int,
+                       kw: dict):
+        """One front end over the grid, row by row, each data row on its
+        slice of the batch: a replay of the row's graph where the row's
+        cells sit on one device and the engine has a graph cache, else
+        the row's ops on its devices.  make_dp_front_end rows of one
+        device share a graph; a make_sharded_front_end row reads its own
+        shard blocks, so its key holds the row.  (per-row handles, the
+        probe's re-dispatch, the rows' ops run eagerly)."""
+        nd, ni = self.mesh.shape["data"], self.mesh.shape["index"]
+        Bp = shape[0] // nd
+        handles, probes, eagers = [], [], []
+        graph_rows = self.mesh.graph_rows(self._fe_graphs)
+        for r in range(nd):
+            part = {n: a[r * Bp:(r + 1) * Bp] for n, a in host.items()}
+            dev = self.mesh.devices[r, 0]
+            if r in graph_rows:
+                sharded = self._index_shards is not None
+                owner = (self._index_shards if sharded
+                         else self.index.device_index(dev))
+
+                def make_fn(inputs, r=r, dev=dev):
+                    return lambda: self._mesh_fe(r, {dev: inputs}, **kw)
+
+                h, probe, fn = self._fe_graph_batch(
+                    part, shape, use_bt, bt_cuts, kw, dev, owner, make_fn,
+                    (nd, ni, r if sharded else -1))
+            else:
+                staged, ups = self._stage_upload(
+                    part, self.mesh.group(r).distinct)
+                fn = probe = (lambda r=r, ups=ups: self._mesh_fe(r, ups, **kw))
+                h = self._launch(dev, *fn(), use_bt, bt_cuts, staged)
+            handles.append(h)
+            probes.append(probe)
+            eagers.append(fn)
+        return (handles, lambda: [p() for p in probes],
+                lambda: [f() for f in eagers])
 
     @staticmethod
     def _stage_host(host: Dict[str, np.ndarray], pin: bool):
@@ -1010,8 +1046,9 @@ class AlignmentEngine:
 
     def _run_group_device(self, sub, q, t, ql, tl, W: int, cells: float,
                           native_ok: bool) -> None:
-        """One job group fully on the device: K3 + K4, only the packed
-        CIGAR table downloaded."""
+        """One job group fully on the device: K3 + K4 (one graph replay
+        per group shape on the card), only the packed CIGAR table
+        downloaded."""
         J = len(q)
         mode = np.asarray(
             [0 if j.kind == "mid" else 1 for j in sub] + [1] * (J - len(sub)),
@@ -1021,7 +1058,7 @@ class AlignmentEngine:
         with self.metrics.timer("extend"):
             res = extend_traceback_device(
                 q, t, ql, tl, mode, W, self._ext_params, self.opt.end_bonus,
-                max_ops=ops, device=self.device,
+                max_ops=ops, device=self.device, graphs=self._ext_graphs,
             )
             self.metrics.add("dp_cells", cells)
             self.metrics.add("ext_groups", 1)
@@ -1038,12 +1075,14 @@ class AlignmentEngine:
 
     def _run_group_device_dl(self, sub, q, t, ql, tl, W: int,
                              cells: float) -> None:
-        """One job group: K3 on the device, the direction bytes
-        downloaded and walked on the host."""
+        """One job group: K3 on the device (one graph replay per group
+        shape on the card), the direction bytes downloaded and walked on
+        the host."""
         QMAX, TMAX = q.shape[1], t.shape[1]
         with self.metrics.timer("extend"):
             res = extend_dp_device(q, t, ql, tl, W, self._ext_params,
-                                   device=self.device)
+                                   device=self.device,
+                                   graphs=self._ext_graphs)
             self.metrics.add("dp_cells", cells)
             self.metrics.add("ext_groups", 1)
             self.metrics.add("ext_download_bytes",

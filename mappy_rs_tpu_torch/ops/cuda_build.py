@@ -10,10 +10,10 @@ Each C entry point launches on the stream it is given and returns
 ops/backtrack.py, ops/extend_kernel.py, ops/traceback.py) raise when
 that is not 0.
 
-``recording()`` counts the calls that K1's and K2's wrappers make on
-one thread inside a block, on either device: the front end's graph
-cache (models/fe_graph.py) records what a capture launches, and credits
-each replay with it.
+``recording()`` counts the calls that the four kernels' wrappers make
+on one thread inside a block, on either device: the graph caches
+(models/graphs.py) record what a capture launches, and credit each
+replay with it.
 """
 from __future__ import annotations
 
@@ -149,12 +149,13 @@ def recording():
         _rec.counts = prev
 
 
-def note(name: str) -> None:
+def note(name: str, detail=None) -> None:
     """Count one call of kernel `name`'s wrapper in this thread's open
-    recording, if any."""
+    recording, if any: under `name`, or under (name, detail) where the
+    kernel's counts keep a detail (K3: its shape)."""
     counts = getattr(_rec, "counts", None)
     if counts is not None:
-        counts[name] += 1
+        counts[name if detail is None else (name, detail)] += 1
 
 
 def check(err: int, name: str) -> None:

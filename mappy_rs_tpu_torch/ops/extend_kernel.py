@@ -6,11 +6,19 @@ sends a CUDA tensor to the hand-written kernel and a CPU tensor to the
 plain version, ops/extend.py ``extend_dp``; there is no fallback between
 the two.  The host wrappers take numpy job batches:
 
-- ``extend_traceback_device`` (backend "device"): upload once, K3 then
-  K4 on one stream with no sync between them, download only the packed
-  CIGAR table and the info rows into pinned memory;
-- ``extend_dp_device`` (backend "device_dl"): K3, then download the
-  direction bytes and trackers for the host walk.
+- ``extend_traceback_device`` (backend "device"): K3 then K4 on one
+  stream with no sync between them, only the packed CIGAR table and the
+  info rows downloaded into pinned memory;
+- ``extend_dp_device`` (backend "device_dl"): K3, then the direction
+  bytes and trackers downloaded for the host walk.
+
+Given a graph cache (models/graphs.py; the engine's on the card), each
+job-group shape is one CUDA graph, the counterpart of the JAX package's
+``_extend_traceback_jit`` / ``_extend_pallas_device`` jits: the jobs are
+copied from pinned memory into the graph's static inputs, one replay
+runs K3 (+ K4), and the outputs are copied out, all under the graph's
+lock; the direction bytes and K3's scratch live in the graph's memory
+pool.  Without a cache the same ops run eagerly on fresh uploads.
 
 Each call waits on its own CUDA event, never on the whole device, so
 the engine's worker threads overlap.
@@ -28,10 +36,21 @@ from . import cuda_build
 from .extend import BEST_COLS, ExtendParams, extend_dp
 from .traceback import traceback_device
 
-#: kernel launches since the last reset (plain-version calls not counted)
+#: kernel launches since the last reset (plain-version calls not counted;
+#: a call inside a CUDA-graph capture launches nothing and is not
+#: counted, and each replay of the graph is credited with its launches)
 launches = 0
 #: the same launches by shape (QMAX, TMAX, W, J), reset with ``launches``
 shapes: collections.Counter = collections.Counter()
+
+
+def credit(n: int, shape: Optional[tuple] = None) -> None:
+    """Count n launches (at `shape`) made by replaying a captured CUDA
+    graph."""
+    global launches
+    launches += n
+    if shape is not None:
+        shapes[shape] += n
 
 #: widest band of K3's warp kernel (a warp per job, W / 32 band lanes per
 #: thread, at most csrc/extend.cu WARP_MAX_C = 8); wider bands, and bands
@@ -66,6 +85,9 @@ def extend_dp_kernel(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
     ``best`` (columns BEST_COLS, the layout K4 reads)."""
     global launches
     dev = q.device
+    J, QMAX = q.shape
+    if J:
+        cuda_build.note("extend_dp", (QMAX, t.shape[-1], W, J))
     if dev.type == "cpu":
         out = extend_dp(q, t, qlen, tlen, W, params)
         out["best"] = torch.stack([out[c] for c in BEST_COLS], 1)
@@ -97,8 +119,9 @@ def extend_dp_kernel(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
                 cuda_build.stream_handle(dev),
             )
         cuda_build.check(err, "extend_dp")
-        launches += 1
-        shapes[(QMAX, TMAX, W, J)] += 1
+        if not torch.cuda.is_current_stream_capturing():
+            launches += 1
+            shapes[(QMAX, TMAX, W, J)] += 1
     out = {name: best[:, k] for k, name in enumerate(BEST_COLS)}
     out["dirs"] = dirs
     out["best"] = best
@@ -110,22 +133,20 @@ def _on(dev: torch.device):
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
-def _upload(arrays, device: torch.device):
-    """numpy arrays -> tensors on `device` (through pinned memory on CUDA)."""
-    out = []
-    for a in arrays:
-        h = torch.from_numpy(np.ascontiguousarray(a))
-        if device.type == "cuda":
-            h = h.pin_memory()
-        out.append(h.to(device, non_blocking=True))
+def _stage(arrays: Dict[str, np.ndarray], device: torch.device):
+    """numpy arrays -> host tensors, pinned for a CUDA upload."""
+    out = {n: torch.from_numpy(np.ascontiguousarray(a))
+           for n, a in arrays.items()}
+    if device.type == "cuda":
+        out = {n: h.pin_memory() for n, h in out.items()}
     return out
 
 
-def _download(tensors, device: torch.device):
-    """Tensors -> numpy: on CUDA into pinned memory, then wait on one
-    event recorded after the copies (this call's work only)."""
+def _copy_out(tensors, device: torch.device):
+    """Start copying tensors to the host: (host tensors, the event that
+    marks the copies done; None on the CPU, whose copies are clones)."""
     if device.type != "cuda":
-        return [x.numpy() for x in tensors]
+        return [x.clone() for x in tensors], None
     hosts = []
     for x in tensors:
         h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
@@ -133,7 +154,28 @@ def _download(tensors, device: torch.device):
         hosts.append(h)
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(device))
-    done.synchronize()
+    return hosts, done
+
+
+def _run(body, host: Dict[str, np.ndarray], device: torch.device, graphs,
+         key: tuple, shape: dict):
+    """body(**inputs) on `device` over the host arrays, its outputs as
+    numpy: through `graphs` (one graph per `key`; copy-in, replay and
+    copy-out under the graph's lock) when given, else eagerly on fresh
+    uploads.  Waits on this call's event only."""
+    staged = _stage(host, device)
+    with _on(device):
+        if graphs is None:
+            ups = {n: h.to(device, non_blocking=True)
+                   for n, h in staged.items()}
+            hosts, done = _copy_out(body(**ups), device)
+        else:
+            g = graphs.get(key, shape, device, None, staged,
+                           lambda inputs: lambda: body(**inputs))
+            hosts, done = graphs.run(g, staged, device,
+                                     lambda *outs: _copy_out(outs, device))
+        if done is not None:
+            done.synchronize()
     return [h.numpy() for h in hosts]
 
 
@@ -148,8 +190,11 @@ def extend_traceback_device(
     end_bonus: int,
     max_ops: int = 128,
     device: torch.device = torch.device("cuda"),
+    graphs=None,
 ) -> Dict[str, np.ndarray]:
-    """The device-resident extension stage: K3 then K4 on `device`.
+    """The device-resident extension stage: K3 then K4 on `device`,
+    through `graphs` (a models/graphs.py GraphCache: one graph per
+    (device, QMAX, TMAX, W, J, max_ops, end_bonus, params)) when given.
 
     Returns ``ops`` int32 [J, max_ops] (len<<4|op, END->START, -1
     padded) and ``info`` int32 [J, 8] (n_ops, final_i, final_j, score,
@@ -157,15 +202,23 @@ def extend_traceback_device(
     exactly (the JAX package rounds it up to a multiple of 128 lanes; at
     the pipeline's 128 the two agree)."""
     dev = torch.device(device)
-    with _on(dev):
-        q_t, t_t, ql_t, tl_t, mode_t = _upload(
-            (q, t, qlen.astype(np.int32), tlen.astype(np.int32),
-             mode.astype(np.int32)), dev)
-        res = extend_dp_kernel(q_t, t_t, ql_t, tl_t, W, params)
-        ops, info = traceback_device(res["dirs"], res["best"], ql_t, tl_t,
-                                     mode_t, W, int(max_ops), int(end_bonus))
-        ops_h, info_h = _download((ops, info), dev)
-    return {"ops": ops_h, "info": info_h}
+    OPS, bonus = int(max_ops), int(end_bonus)
+
+    def body(q, t, qlen, tlen, mode):
+        res = extend_dp_kernel(q, t, qlen, tlen, W, params)
+        return traceback_device(res["dirs"], res["best"], qlen, tlen, mode,
+                                W, OPS, bonus)
+
+    J, QMAX = q.shape
+    TMAX = t.shape[1]
+    ops, info = _run(
+        body, {"q": q, "t": t, "qlen": qlen.astype(np.int32),
+               "tlen": tlen.astype(np.int32), "mode": mode.astype(np.int32)},
+        dev, graphs,
+        ("extend_traceback", str(dev), QMAX, TMAX, W, J, OPS, bonus, params),
+        {"device": str(dev), "QMAX": QMAX, "TMAX": TMAX, "W": W, "J": J,
+         "OPS": OPS})
+    return {"ops": ops, "info": info}
 
 
 def extend_dp_device(
@@ -176,15 +229,25 @@ def extend_dp_device(
     W: int,
     params: ExtendParams,
     device: torch.device = torch.device("cuda"),
+    graphs=None,
 ) -> Dict[str, np.ndarray]:
     """K3 on `device`, then the direction bytes (uint8 [S, J, W]) and the
-    six trackers downloaded for the host walk (backend "device_dl")."""
+    six trackers downloaded for the host walk (backend "device_dl");
+    through `graphs` (one graph per (device, QMAX, TMAX, W, J, params))
+    when given."""
     dev = torch.device(device)
-    with _on(dev):
-        q_t, t_t, ql_t, tl_t = _upload(
-            (q, t, qlen.astype(np.int32), tlen.astype(np.int32)), dev)
-        res = extend_dp_kernel(q_t, t_t, ql_t, tl_t, W, params)
-        dirs, best = _download((res["dirs"], res["best"]), dev)
+
+    def body(q, t, qlen, tlen):
+        res = extend_dp_kernel(q, t, qlen, tlen, W, params)
+        return res["dirs"], res["best"]
+
+    J, QMAX = q.shape
+    TMAX = t.shape[1]
+    dirs, best = _run(
+        body, {"q": q, "t": t, "qlen": qlen.astype(np.int32),
+               "tlen": tlen.astype(np.int32)},
+        dev, graphs, ("extend_dp", str(dev), QMAX, TMAX, W, J, params),
+        {"device": str(dev), "QMAX": QMAX, "TMAX": TMAX, "W": W, "J": J})
     out = {c: best[:, k] for k, c in enumerate(BEST_COLS)}
     out["dirs"] = dirs
     return out

@@ -28,8 +28,16 @@ from .extend import NEG
 
 OP_M, OP_I, OP_D = 0, 1, 2
 
-#: kernel launches since the last reset (plain-version calls not counted)
+#: kernel launches since the last reset (plain-version calls not counted;
+#: a call inside a CUDA-graph capture launches nothing and is not
+#: counted, and each replay of the graph is credited with its launches)
 launches = 0
+
+
+def credit(n: int) -> None:
+    """Count n launches made by replaying a captured CUDA graph."""
+    global launches
+    launches += n
 
 #: direction bytes per slab that K4 copies into shared memory for one
 #: walk (csrc/traceback.cu); two slabs per job, TB_JOBS jobs per block.
@@ -164,6 +172,8 @@ def traceback_device(dirs, best, qlen, tlen, mode, W: int, OPS: int,
     global launches
     S, J, Wd = dirs.shape
     dev = dirs.device
+    if J:
+        cuda_build.note("traceback")
     if dev.type == "cpu":
         return traceback_plain(dirs, best, qlen, tlen, mode, W, OPS, end_bonus)
     if dev.type != "cuda":
@@ -193,5 +203,6 @@ def traceback_device(dirs, best, qlen, tlen, mode, W: int, OPS: int,
             cuda_build.stream_handle(dev),
         )
     cuda_build.check(err, "traceback_walk")
-    launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        launches += 1
     return ops, info

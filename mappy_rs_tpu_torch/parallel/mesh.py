@@ -31,9 +31,14 @@ does a read map, on which strand, with what chain and extension
 score): per row, the sketch, each shard's anchors, their all_gather and
 re-sort, the block chaining DP, the best chain per read, and the
 score-only banded extension of the whole read against the reference
-block of the shard that owns its contig (kernel K3), merged with a
-pmax.  The full-CIGAR front ends over a grid are models/pipeline.py's
-``make_dp_front_end`` and ``make_sharded_front_end``.
+block of the shard that owns its contig (kernel K3, run by every peer
+over all of the row's reads, as the JAX body runs it), merged with a
+pmax.  The step has no host sync, so on the card each row whose cells
+sit on one device is one CUDA graph replay per batch shape
+(models/graphs.py), the JAX package's one executable per shape; a row
+spanning several cards runs its ops eagerly.  The full-CIGAR front ends
+over a grid are models/pipeline.py's ``make_dp_front_end`` and
+``make_sharded_front_end``.
 """
 from __future__ import annotations
 
@@ -119,6 +124,20 @@ class DeviceMesh:
 
     def group(self, row: int) -> IndexGroup:
         return IndexGroup(self.devices[row])
+
+    def graph_rows(self, graphs) -> frozenset:
+        """The local rows that run as graphs of `graphs` (a
+        models/graphs.py GraphCache; None: no row): those whose cells
+        all sit on one device that the cache captures on.  A CUDA graph
+        captures on one device, so a row whose cells span several cards
+        runs its ops eagerly: the layout decides, never a failed
+        capture."""
+        if graphs is None:
+            return frozenset()
+        return frozenset(
+            r for r in self.local_rows
+            if len(self.group(r).distinct) == 1
+            and graphs.captures_on(self.devices[r, 0]))
 
 
 def rows_of(n_data: int, n_index: int, devices=None) -> int:
@@ -331,11 +350,14 @@ def _best_chains(an: dict, chain_params: ChainParams, chain_window: int) -> dict
 
 def _extend_owned(peer: int, codes, lens, best: dict, sh: dict, W: int,
                   ext_params: ExtendParams):
-    """One index peer's part of the decision extension: the reads whose
-    best chain lies on a contig of this peer's reference block, each
-    extended score-only over a window of the block on the chain's
-    diagonal (kernel K3, W band lanes).  Returns the per-read (score,
-    end on the contig) with -2^30 where another peer owns the read."""
+    """One index peer's part of the decision extension, in the JAX
+    body's static form: every read of the row extended score-only over
+    a window of this peer's reference block on its best chain's diagonal
+    (kernel K3, W band lanes, J = the row's B), kept where the chain's
+    contig lies in this peer's block.  Returns the per-read (score, end
+    on the contig) with -2^30 where another peer owns the read; a read
+    of length 0 has no DP cell, so it keeps (EXT_NEG, the window's start
+    + 1)."""
     B, L = codes.shape
     ref_block = sh["ref_blocks"][0]  # [blk] this shard's contigs
     TWIN = L + W
@@ -346,24 +368,18 @@ def _extend_owned(peer: int, codes, lens, best: dict, sh: dict, W: int,
     diag_start = loc_off + best["rpos"] - best["qpos"]
     start = torch.clamp(diag_start - W // 2, 0, blk - TWIN)
     mine = sh["rid2shard"][rid] == peer
+    twin = ref_block[start[:, None].to(torch.int64)
+                     + torch.arange(TWIN, device=codes.device)]
+    q_al = torch.where(best["rev"][:, None] == 1,
+                       _revcomp_batch(codes, lens), codes)
+    ext = extend_dp_kernel(
+        q_al.contiguous(), twin.contiguous(), lens.to(torch.int32),
+        torch.clamp(lens + W, max=TWIN).to(torch.int32), W, ext_params)
+    has = lens > 0
     neg = torch.full((B,), -(1 << 30), dtype=torch.int32, device=codes.device)
-    # a read of length 0 has no DP cell: K3's trackers stay (NEG, 0)
-    score = torch.where(mine, EXT_NEG, neg)
-    end = torch.where(mine, start + 1 - loc_off, neg)
-    jobs = torch.nonzero(mine & (lens > 0))[:, 0]
-    if jobs.numel():
-        st = start[jobs]
-        twin = ref_block[st[:, None].to(torch.int64)
-                         + torch.arange(TWIN, device=codes.device)]
-        q, ql = codes[jobs], lens[jobs]
-        q_al = torch.where(best["rev"][jobs][:, None] == 1,
-                           _revcomp_batch(q, ql), q)
-        ext = extend_dp_kernel(
-            q_al.contiguous(), twin.contiguous(), ql.to(torch.int32),
-            torch.clamp(ql + W, max=TWIN).to(torch.int32), W, ext_params)
-        score[jobs] = ext["best_sc"]
-        end[jobs] = st + ext["best_j"] + 1 - loc_off[jobs]
-    return score, end
+    score = torch.where(mine, torch.where(has, ext["best_sc"], EXT_NEG), neg)
+    end = torch.where(has, start + ext["best_j"], start) + 1 - loc_off
+    return score, torch.where(mine, end, neg)
 
 
 def _decision_row(grp: IndexGroup, codes: dict, lens: dict, shards: list, *,
@@ -419,6 +435,7 @@ def build_sharded_map_step(
     mid_occ: int,
     chain_window: int = 16,
     ext_window: int = 64,
+    graphs=None,
 ):
     """The decision step over a (data, index) grid.
 
@@ -432,32 +449,66 @@ def build_sharded_map_step(
     and end on the contig.  ``gather_results`` brings them to numpy.
 
     The reference is sharded into contig-range blocks over "index"; the
-    shard owning a read's contig computes its extension and the two
-    scalars merge with a pmax, so nothing reference-sized is
-    replicated, and every device coordinate is shard-local int32.
+    shard owning a read's contig keeps its extension and the two scalars
+    merge with a pmax, so nothing reference-sized is replicated, and
+    every device coordinate is shard-local int32.
+
+    `graphs`: a models/graphs.py GraphCache through which each of this
+    process's ``mesh.graph_rows(graphs)`` (rows whose cells sit on one
+    card) runs as one CUDA graph per (row, B_row, L, the static
+    keywords, the shards' identity), copy-in, replay and copy-out under
+    the graph's lock; the other rows, and every row when `graphs` is
+    None, run their ops eagerly.  ``step.graphs`` is the cache.
     """
     n_index = mesh.shape["index"]
     kw = dict(k=k, w=w, M=max_minimizers, A_loc=max_anchors,
               chain_params=chain_params, ext_params=ext_params,
               mid_occ=mid_occ, chain_window=chain_window,
               ext_window=ext_window)
+    rows = mesh.graph_rows(graphs)
+    static = tuple(sorted(kw.items()))
+
+    def run_row(row: int, grp: IndexGroup, codes: Placed, lens: Placed,
+                sh: Dict[str, Placed]) -> dict:
+        cells = [(row, c) for c in range(n_index)]
+        shards = [{n: a.blocks[cell] for n, a in sh.items()}
+                  for cell in cells]
+        if row not in rows:
+            return _decision_row(
+                grp,
+                {grp.devices[c]: codes.blocks[cell]
+                 for c, cell in enumerate(cells)},
+                {grp.devices[c]: lens.blocks[cell]
+                 for c, cell in enumerate(cells)},
+                shards, **kw)
+        # the row's cells share one device, and so one block of the reads
+        dev = grp.distinct[0]
+        like = {"codes": codes.blocks[cells[0]], "lens": lens.blocks[cells[0]]}
+        B_row, L = like["codes"].shape
+
+        def make_fn(inputs):
+            def fn():
+                res = _decision_row(grp, {dev: inputs["codes"]},
+                                    {dev: inputs["lens"]}, shards, **kw)[dev]
+                return tuple(res[n] for n in DECISION_FIELDS)
+            return fn
+
+        g = graphs.get(("decision", str(dev), row, B_row, L, static, id(sh)),
+                       {"device": str(dev), "row": row, "B": B_row, "L": L},
+                       dev, sh, like, make_fn)
+        out = graphs.run(g, like, dev, lambda *o: [x.clone() for x in o])
+        return {dev: dict(zip(DECISION_FIELDS, out))}
 
     def step(codes: Placed, lens: Placed, sh: Dict[str, Placed]) -> dict:
         blocks = {n: {} for n in DECISION_FIELDS}
         for row in mesh.local_rows:
             grp = mesh.group(row)
-            cells = [(row, c) for c in range(n_index)]
-            res = _decision_row(
-                grp,
-                {grp.devices[c]: codes.blocks[cell] for c, cell in enumerate(cells)},
-                {grp.devices[c]: lens.blocks[cell] for c, cell in enumerate(cells)},
-                [{n: a.blocks[cell] for n, a in sh.items()} for cell in cells],
-                **kw,
-            )
+            res = run_row(row, grp, codes, lens, sh)
             for n in DECISION_FIELDS:
-                for c, cell in enumerate(cells):
-                    blocks[n][cell] = res[grp.devices[c]][n]
+                for c in range(n_index):
+                    blocks[n][(row, c)] = res[grp.devices[c]][n]
         return {n: Placed((codes.shape[0],), P("data"), b)
                 for n, b in blocks.items()}
 
+    step.graphs = graphs
     return step

@@ -737,3 +737,169 @@ def test_fe_graph_capture_survives_garbage_collection(cuda, monkeypatch):
     assert al.metrics["fe_graph_captures"] >= 1
     assert [al._to_mappings(r) for r in got] == \
         [cpu._to_mappings(r) for r in want]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["device", "device_dl"])
+def test_ext_graphs_on_card_match_eager(cuda, backend):
+    """Each job group one replay of the graph of its shape (K3 + K4, or
+    K3): the same Mappings (cs, MD), K3 / K4 launches and K3 shapes as
+    the eager groups, no capture once the keys are captured."""
+    rng = np.random.default_rng(59)
+    genome = random_genome(rng, 1_000_000)
+    reads, _ = simulate(rng, genome, 300, 1000, 0.05)
+    al = mappy_rs_tpu_torch.Aligner(seq=genome, device=cuda)
+    eng = al._engine
+    eng.cfg.extension_backend = backend
+    graphs = eng._ext_graphs
+    assert graphs is not None, "the card engine runs no extension graphs"
+
+    def run():
+        eng.metrics.reset()
+        n3, n4, s0 = ek.launches, tb.launches, dict(ek.shapes)
+        out = [al._to_mappings(r)
+               for r in eng.map_batch(reads, cs=True, md=True)]
+        shapes = {k: v - s0.get(k, 0) for k, v in ek.shapes.items()
+                  if v - s0.get(k, 0)}
+        return out, (ek.launches - n3, tb.launches - n4), shapes, \
+            eng.metrics.snapshot()
+
+    run()
+    got, l_graph, s_graph, m = run()
+    eng._ext_graphs = None
+    try:
+        want, l_eager, s_eager, _ = run()
+    finally:
+        eng._ext_graphs = graphs
+    assert got == want
+    assert m["ext_graph_replays"] == m["ext_groups"] > 0
+    assert m.get("ext_graph_captures", 0) == 0
+    assert l_graph == l_eager and s_graph == s_eager
+    assert (l_graph[1] > 0) == (backend == "device")
+    assert all(r["pool_mb"] > 0 for r in graphs.stats())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_data,n_index", [(2, 1), (2, 2)])
+def test_grid_graphs_on_card_match_eager(cuda, n_data, n_index):
+    """Grid rows of cuda:0 cells: each row's front end one replay, the
+    Mappings and K1 launches those of the rows' eager ops."""
+    rng = np.random.default_rng(61)
+    genome = random_genome(rng, 1_000_000)
+    reads, _ = simulate(rng, genome, 600, 1000, 0.05)
+    al = mappy_rs_tpu_torch.Aligner(seq=genome, device=cuda)
+    al.enable_mesh(n_data, n_index=n_index,
+                   devices=["cuda:0"] * (n_data * n_index))
+    eng = al._engine
+    assert eng.mesh.graph_rows(eng._fe_graphs) == frozenset(range(n_data))
+
+    def run():
+        eng.metrics.reset()
+        n1 = ck.launches
+        out = [al._to_mappings(r) for r in eng.map_batch(reads, cs=True)]
+        return out, ck.launches - n1, eng.metrics.snapshot()
+
+    run()
+    got, l_graph, m = run()
+    graphs, eng._fe_graphs = eng._fe_graphs, None
+    try:
+        want, l_eager, _ = run()
+    finally:
+        eng._fe_graphs = graphs
+    assert got == want and l_graph == l_eager > 0
+    assert m["fe_graph_replays"] == m["fe_batches"] * n_data > 0
+    assert m.get("fe_graph_captures", 0) == 0
+
+
+@pytest.mark.cuda
+def test_decision_graphs_on_card_match_eager(cuda):
+    """map_batch_positions on a 2 x 2 grid of cuda:0 cells: each row of
+    each batch one replay, decisions == the eager step's; one capture per
+    row and B_pad, K3 credited once per peer and replay."""
+    rng = np.random.default_rng(63)
+    genome = random_genome(rng, 2_000_000)
+    reads, _ = simulate(rng, genome, 600, 1000, 0.05)
+    al = mappy_rs_tpu_torch.Aligner(seq=genome, device=cuda)
+    al.enable_sharding(2, 2, devices=["cuda:0"] * 4)
+    assert al._mesh.graph_rows(al._dec_graphs) == frozenset({0, 1})
+    batches = [reads[:256], reads[256:512], reads[512:]]  # 256, 256, 88
+    got = [al.map_batch_positions(b) for b in batches]
+    n3 = ek.launches
+    again = [al.map_batch_positions(b) for b in batches]
+    assert ek.launches - n3 == 3 * 2 * 2
+    c = al._engine.metrics.counters
+    keys = set()
+    for b in batches:
+        L = 512
+        while L < max(len(r) for r in b):
+            L <<= 1
+        keys.add((len(b) + len(b) % 2, L))
+    assert c["dec_graph_captures"] == 2 * len(keys)
+    assert c["dec_graph_replays"] == 2 * 2 * len(batches)
+    assert all(r["pool_mb"] > 0 for r in al._dec_graphs.stats())
+    al._dec_graphs, al._sharded_steps = None, {}
+    want = [al.map_batch_positions(b) for b in batches]
+    assert got == want == again
+    assert sum(1 for b in want for d in b if d is not None) >= 0.99 * 600
+
+
+@pytest.mark.cuda
+def test_decision_stream_of_every_batch_size_within_budget(cuda):
+    """map_batch_positions on a 2 x 2 grid of cuda:0 cells over every
+    batch size from 1 to 512 reads of ~1 kb (L = 1,024): 256 B_pad, 512
+    row keys, some 140 GB of pools if none left the cache.  The cached
+    pools stay within DEC_GRAPH_BUDGET_MB and the key captured last; the
+    card's peak reserved memory grows by at most the budget, the largest
+    key's pool (captured before the eviction it causes), the eager
+    512-read step's own peak (each capture first runs the step eagerly,
+    on the one side stream whose blocks every warm-up reuses) and 64 MB
+    (the allocator's 2 MB segments of small blocks, the call's own
+    inputs and outputs); a size that comes back after its eviction
+    captures again; every decision is the eager 512-read batch's."""
+    from mappy_rs_tpu_torch.api import DEC_GRAPH_BUDGET_MB
+
+    rng = np.random.default_rng(67)
+    genome = random_genome(rng, 2_000_000)
+    reads, _ = simulate(rng, genome, 512, 900, 0.05)
+    assert max(len(r) for r in reads) <= 1024
+    al = mappy_rs_tpu_torch.Aligner(seq=genome, device=cuda)
+    al.enable_sharding(2, 2, devices=["cuda:0"] * 4)
+    graphs, al._dec_graphs = al._dec_graphs, None
+    al.map_batch_positions(reads[:2])  # uploads the shards
+
+    def peak_of(run):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        out = run()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_reserved() - base
+
+    want, eager = peak_of(lambda: al.map_batch_positions(reads))
+    al._dec_graphs, al._sharded_steps = graphs, {}
+    sizes = list(range(1, 513)) + [1, 2]
+
+    def stream():
+        largest = 0.0
+        for n in sizes:
+            assert al.map_batch_positions(reads[:n]) == want[:n]
+            newest = max(s["pool_mb"] for s in graphs.stats()
+                         if s["B"] == (n + n % 2) // 2)
+            assert graphs.pool_mb() <= DEC_GRAPH_BUDGET_MB + newest
+            largest = max(largest, newest)
+        return largest
+
+    largest, grown = peak_of(stream)
+    c = al._engine.metrics.counters
+    print(f"decision stream of every size: {c['dec_graph_captures']:.0f} "
+          f"captures, {c['dec_graph_evictions']:.0f} evictions, "
+          f"{c['dec_graph_pool_mb']:.1f} MB of pools captured, "
+          f"{graphs.pool_mb():.1f} MB cached at the end, the largest key "
+          f"{largest:.1f} MB; peak reserved grew {grown / 2**20:.1f} MB, "
+          f"the eager 512-read step's {eager / 2**20:.1f} MB")
+    # B_row 1-256 once per row, then B_row 1 again (evicted by then)
+    assert c["dec_graph_captures"] == 2 * (256 + 1)
+    assert c["dec_graph_evictions"] > 0
+    assert c["dec_graph_replays"] == 2 * len(sizes)
+    assert grown <= (DEC_GRAPH_BUDGET_MB + largest + 64) * 2**20 + eager

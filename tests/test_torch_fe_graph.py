@@ -1,12 +1,12 @@
-"""The front end's graph cache (models/fe_graph.py) on the CPU.
+"""The front end's graph cache (models/graphs.py) on the CPU.
 
 On the card every single-device front-end batch is one replay of a CUDA
 graph captured once per batch key.  The cache takes its capture
-function as an argument; here it is given ``stand_in``, which runs the
-front end once into static outputs and whose replay re-runs it on the
-static inputs and writes the results into those same outputs: a real
-graph's aliasing (a replay overwrites the last replay's outputs), on
-the plain versions.  Every Mapping must equal the eager engine's (and,
+function as an argument; here it is given tests/torch_parity.py
+``stand_in``, which runs the front end once into static outputs and
+whose replay re-runs it on the static inputs and writes the results
+into those same outputs: a real graph's aliasing (a replay overwrites
+the last replay's outputs), on the plain versions.  Every Mapping must equal the eager engine's (and,
 for map-ont, the JAX package's), on every branch the graphs take: the
 presets (map-pb's HPC inputs, splice's K1 branch), the anchor-budget
 retries at A x 4 and x 16, the host backtrack, batches of one key in
@@ -20,45 +20,23 @@ import pytest
 import torch
 
 import mappy_rs_tpu_torch
-from mappy_rs_tpu_torch.models.fe_graph import Captured, FrontEndGraphs
+from mappy_rs_tpu_torch.models.graphs import GraphCache
 from mappy_rs_tpu_torch.ops import backtrack as bt
 from mappy_rs_tpu_torch.ops import chain_kernel as ck
-from mappy_rs_tpu_torch.ops import cuda_build
 from mappy_rs_tpu_torch.utils.seqcodes import encode
 from mappy_rs_tpu_torch.utils.simulate import (random_genome, simulate,
                                                simulate_hpc_noise,
                                                spliced_genes)
 
-from torch_parity import aligner_pair, drain, fields, same_mappings
+from torch_parity import aligner_pair, drain, fields, same_mappings, stand_in
 
 # one intra-op thread per test process (the suite runs several workers)
 torch.set_num_threads(1)
 
 
-class ReplayInPlace:
-    """Stands in for a captured CUDA graph: replay() re-runs the front
-    end on the static inputs and writes into the static outputs."""
-
-    def __init__(self, fn, outputs):
-        self.fn = fn
-        self.outputs = outputs
-
-    def replay(self):
-        for out, new in zip(self.outputs, self.fn()):
-            out.copy_(new)
-
-
-def stand_in(fn, device):
-    """A capture function for the CPU: the first run's results are the
-    static outputs; its K1 / K2 calls are what a replay launches."""
-    with cuda_build.recording() as launches:
-        outputs = tuple(fn())
-    return Captured(ReplayInPlace(fn, outputs), outputs, 0, dict(launches))
-
-
 def with_graphs(al):
     eng = al._engine
-    eng._fe_graphs = FrontEndGraphs(eng.metrics, capture=stand_in)
+    eng._fe_graphs = GraphCache(eng.metrics, capture=stand_in)
     return eng
 
 
@@ -271,8 +249,8 @@ def test_rebuilt_index_drops_old_graphs(overflow_data):
     eng.index._devices.clear()
     eng.map_batch(reads[:4])
     (new,) = eng._fe_graphs._graphs.values()
-    assert new is not old and new.dev_index is eng.dev
-    assert old.dev_index is not eng.dev
+    assert new is not old and new.owner is eng.dev
+    assert old.owner is not eng.dev
 
 
 def test_threads_share_graphs(overflow_data):
