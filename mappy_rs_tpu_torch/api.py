@@ -348,8 +348,11 @@ class Aligner:
 
     @property
     def metrics(self) -> Dict[str, float]:
-        """Engine observability counters (reads/sec, DP cell-updates/sec,
-        per-stage wall times).  In multi-process mode the children's
+        """Engine observability: counters (reads, DP cells, front-end
+        batches, graph captures, the native post-chain's thread CPU
+        seconds ``cpu_post_chain_s``, ...) and per-stage sums of thread
+        seconds and calls (``time_<stage>_s``, ``calls_<stage>``;
+        utils/metrics.py).  In multi-process mode the children's
         counters are summed into the parent's snapshot."""
         snap = self._engine.metrics.snapshot()
         if self._procs is not None:
@@ -357,15 +360,27 @@ class Aligner:
                 for k, v in child.items():
                     if isinstance(v, (int, float)):
                         snap[k] = snap.get(k, 0) + v
-            cells = snap.get("dp_cells", 0.0)
-            t_ext = snap.get("time_extend_s", 0.0)
-            if cells and t_ext:
-                snap["dp_cells_per_sec"] = cells / t_ext
             # the stage times above are seconds summed over every process
             # and its threads, not wall time; the divisor for a
             # per-process view travels with the snapshot
             snap["worker_procs"] = self._procs.n_procs
         return snap
+
+    def enable_timeline(self, on: bool = True) -> None:
+        """Keep the threads' worker states (utils/metrics.py ``STATES``)
+        on a timeline, each thread's last ``TIMELINE_RECORDS``, for
+        span_events; False switches it off and drops the records.  Off
+        by default; in multi-process mode the parent's threads only."""
+        self._engine.metrics.set_timeline(on)
+
+    def span_events(self, base_ns: int = 0) -> List[dict]:
+        """The timeline's records as Chrome-trace events on
+        torch.profiler's clock (utils/metrics.py
+        ``EngineMetrics.span_events``): append them to a trace's
+        ``traceEvents``, with `base_ns` its ``baseTimeNanoseconds``, to
+        name what the host did in the card's idle gaps.  Empty while the
+        timeline is off (enable_timeline)."""
+        return self._engine.metrics.span_events(base_ns)
 
     def probe_front_end(self, n: int = 10) -> list:
         """Front-end seconds per batch from re-dispatching the last
@@ -522,6 +537,7 @@ class Aligner:
                     n_threads,
                     [procs.map_fn(i) for i in range(n_threads)],
                     batch_size=self._config.proc_chunk,
+                    metrics=self._engine.metrics,
                 )
                 return
         self._pool = WorkerPool(
@@ -529,6 +545,7 @@ class Aligner:
             self._threaded_map,
             # one device chunk per drain
             batch_size=self._config.device_batch_size,
+            metrics=self._engine.metrics,
         )
 
     def warmup(self, seqs: List[str]) -> None:

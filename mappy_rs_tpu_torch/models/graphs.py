@@ -255,7 +255,7 @@ class GraphCache:
             for name, t in staged.items():
                 g.inputs[name].copy_(t, non_blocking=True)
             if g.captured is None:
-                with _CAPTURE_MU:
+                with _CAPTURE_MU, self.metrics.span("graph_capture"):
                     g.captured = self.capture(g.fn, device)
                     self.metrics.add(f"{self.prefix}_captures", 1)
                     self.metrics.add(f"{self.prefix}_pool_mb",

@@ -361,7 +361,7 @@ class AlignmentEngine:
 
         sink = PackedSink(len(seqs), no_2nd)
         out = self._map(seqs, cs, md, sink)
-        with self.metrics.timer("finalize"):
+        with self.metrics.span("finalize"):
             return sink.finish(out)
 
     def post_chain_packed(
@@ -378,19 +378,20 @@ class AlignmentEngine:
         on the host (native post-chain, Python path for its fallbacks)."""
         from ..runtime.pack import PackedSink
 
-        with self.metrics.timer("map_batch"):
+        with self.metrics.span("map_batch"):
             self.metrics.add("reads", len(codes))
             sink = PackedSink(len(codes), no_2nd)
             out: List[List[Region]] = [[] for _ in codes]
             self._post_chain_tail(chains, rep_len, codes, out, cs, md, sink)
-            with self.metrics.timer("finalize"):
+            with self.metrics.span("finalize"):
                 return sink.finish(out)
 
     def _map(self, seqs: Sequence[str], cs: bool, md: bool, sink):
         out: List[List[Region]] = [[] for _ in seqs]
-        with self.metrics.timer("map_batch"):
+        with self.metrics.span("map_batch"):
             self.metrics.add("reads", len(seqs))
-            codes = [encode(s) for s in seqs]
+            with self.metrics.span("fe_stage"):
+                codes = [encode(s) for s in seqs]
             # MM_F_RMQ presets need the long-gap chaining pass of the
             # native CPU front end (as in the JAX package)
             want_cpu = self.cfg.front_end_backend == "cpu" or bool(
@@ -426,7 +427,7 @@ class AlignmentEngine:
 
         od, mmo = self._seed_select_params()
         use_rmq = bool(self.opt.flag & MM_F_RMQ)
-        with self.metrics.timer("front_end"):
+        with self.metrics.span("front_end"):
             chains, rep_len, _n_anchors = native.front_end_batch(
                 self.index, codes, self.opt.mid_occ, self._chain_params,
                 self.cfg.cpu_chain_max_iter, self.opt.min_cnt,
@@ -456,17 +457,29 @@ class AlignmentEngine:
         )
         if fb is not None and not fb.any():
             return
+        with self.metrics.span("post_chain_py"):
+            self._post_chain_py(range(len(codes)), chains, rep_len, fb,
+                                codes, out, cs, md)
+
+    def _post_chain_py(self, chunk, chains, rep_len, fb,
+                       codes: List[np.ndarray], out: List[List[Region]],
+                       cs: bool, md: bool) -> None:
+        """The Python post-chain of the reads of `chunk` (read indices;
+        row i of chains and rep_len is chunk[i]) that the native one did
+        not finish (`fb`: its fallback mask; None: every read): regions,
+        extension jobs, zdrop splits and finalize."""
+        k = self.index.k
         jobs: List[_ExtJob] = []
         read_regions: List[Tuple[int, List[Region], int]] = []
-        for ri, c in enumerate(codes):
-            if fb is not None and not fb[ri]:
+        for bi, ri in enumerate(chunk):
+            if fb is not None and not fb[bi]:
                 continue
-            qlen = len(c)
-            regions = regions_from_compact(chains[ri], qlen, self.index.k)
+            qlen = len(codes[ri])
+            regions = regions_from_compact(chains[bi], qlen, k)
             set_parent(regions, self.opt.mask_level, self.opt.mask_len)
             regions = select_sub(regions, self.opt.pri_ratio, self.opt.best_n)
-            read_regions.append((ri, regions, int(rep_len[ri])))
-            jobs.extend(self._make_jobs(regions, c, qlen))
+            read_regions.append((ri, regions, int(rep_len[bi])))
+            jobs.extend(self._make_jobs(regions, codes[ri], qlen))
         self._run_jobs(jobs)
         self._run_split_rounds(read_regions, codes)
         self._finish_reads(read_regions, codes, out, cs, md)
@@ -581,7 +594,7 @@ class AlignmentEngine:
             lens[bi] = len(c)
         host = {"codes": batch, "lens": lens}
         if self.index.flag & 0x1:  # MM_I_HPC
-            with self.metrics.timer("hpc_stage"):
+            with self.metrics.span("hpc_stage"):
                 cc, cl, run_end, run_len = compress_hpc(batch, lens)
                 sp = hpc_spans(run_len, self.index.k)
                 host.update(codes=cc, sk_lens=cl, force_inf=sp >= 256,
@@ -601,21 +614,21 @@ class AlignmentEngine:
         the anchor counts) is copied into pinned memory asynchronously,
         and an event recorded after the copy tells _fe_collect when it
         has landed."""
-        host = self.stage_batch(codes_sel, L, B)
+        with self.metrics.span("fe_stage"):
+            host = self.stage_batch(codes_sel, L, B)
+            kw = self._fe_kwargs(M, A, bt_cuts)
         lens = host["lens"]
-        kw = self._fe_kwargs(M, A, bt_cuts)
         if not use_bt:
             for name in ("bt_k", "bt_cuts", "min_cnt", "min_sc"):
                 del kw[name]
         self.metrics.add("fe_batches", 1)
-        self.metrics.add("fe_reads", len(codes_sel))
         if not use_bt:
             self.metrics.add("host_bt_batches", 1)
         # chain DP cell updates this dispatch: B*A anchors x window
         self.metrics.add("chain_cells", float(B) * A * kw["window"])
         eager = None  # the front end's ops, where `run` replays a graph
         shape = (B, L, M, A)
-        with self.metrics.timer("front_end"):
+        with self.metrics.span("front_end"):
             if self.mesh is None:
                 fn = front_end_bt if use_bt else front_end_chain
                 dev = self.dev
@@ -630,10 +643,12 @@ class AlignmentEngine:
                         host, shape, use_bt, bt_cuts, kw, self.device, dev,
                         make_fn)
                 else:
-                    staged, up = self._stage_upload(host, [self.device])
+                    with self.metrics.span("fe_stage"):
+                        staged, up = self._stage_upload(host, [self.device])
                     run = make_fn(up[self.device])
-                    handles = self._launch(self.device, *run(), use_bt,
-                                           bt_cuts, staged)
+                    with self.metrics.span("fe_submit"):
+                        handles = self._launch(self.device, *run(), use_bt,
+                                               bt_cuts, staged)
             else:
                 handles, run, eager = self._fe_grid_batch(
                     host, shape, use_bt, bt_cuts, kw)
@@ -665,18 +680,21 @@ class AlignmentEngine:
         probe's replay, the front end run eagerly on the graph's
         inputs)."""
         B, L, M, A = shape
-        staged = self._stage_host(host, device.type == "cuda")
-        graph = self._fe_graphs.get(
-            self._fe_key(shape, use_bt, bt_cuts, kw, owner, device, grid),
-            {"device": str(device), "B": len(host["lens"]), "L": L, "M": M,
-             "A": A, "use_bt": use_bt, "bt_cuts": bt_cuts,
-             **({"grid": grid} if grid else {})},
-            device, owner, staged, make_fn)
-        handles = self._fe_graphs.run(
-            graph, staged, device,
-            lambda out, aux: self._launch(device, out, aux, use_bt,
-                                          bt_cuts, tuple(staged.values()),
-                                          static=True))
+        with self.metrics.span("fe_stage"):
+            staged = self._stage_host(host, device.type == "cuda")
+        with self.metrics.span("fe_submit"):
+            graph = self._fe_graphs.get(
+                self._fe_key(shape, use_bt, bt_cuts, kw, owner, device,
+                             grid),
+                {"device": str(device), "B": len(host["lens"]), "L": L,
+                 "M": M, "A": A, "use_bt": use_bt, "bt_cuts": bt_cuts,
+                 **({"grid": grid} if grid else {})},
+                device, owner, staged, make_fn)
+            handles = self._fe_graphs.run(
+                graph, staged, device,
+                lambda out, aux: self._launch(device, out, aux, use_bt,
+                                              bt_cuts, tuple(staged.values()),
+                                              static=True))
         return handles, graph.probe, graph.fn
 
     def _fe_grid_batch(self, host, shape, use_bt: bool, bt_cuts: int,
@@ -707,10 +725,12 @@ class AlignmentEngine:
                     part, shape, use_bt, bt_cuts, kw, dev, owner, make_fn,
                     (nd, ni, r if sharded else -1))
             else:
-                staged, ups = self._stage_upload(
-                    part, self.mesh.group(r).distinct)
+                with self.metrics.span("fe_stage"):
+                    staged, ups = self._stage_upload(
+                        part, self.mesh.group(r).distinct)
                 fn = probe = (lambda r=r, ups=ups: self._mesh_fe(r, ups, **kw))
-                h = self._launch(dev, *fn(), use_bt, bt_cuts, staged)
+                with self.metrics.span("fe_submit"):
+                    h = self._launch(dev, *fn(), use_bt, bt_cuts, staged)
             handles.append(h)
             probes.append(probe)
             eagers.append(fn)
@@ -773,9 +793,10 @@ class AlignmentEngine:
         and walked by native backtrack_compact_batch, which gives K2's
         chain table."""
         parts = handles if isinstance(handles, list) else [handles]
-        for h in parts:
-            if h.done is not None:
-                h.done.synchronize()
+        with self.metrics.span("fe_wait"):
+            for h in parts:
+                if h.done is not None:
+                    h.done.synchronize()
         aux = np.concatenate([h.aux.numpy() for h in parts], axis=1)
         if parts[0].bt_cuts is None:
             return (np.concatenate([h.out.numpy() for h in parts]),
@@ -785,12 +806,13 @@ class AlignmentEngine:
         n, n_raw, rep_len = aux
         A = parts[0].out.shape[2]
         A_used = min(_pow2_at_least(max(int(n.max(initial=0)), 1)), A)
-        arr = np.concatenate(
-            [h.out[:, :, :A_used].cpu().numpy() for h in parts], axis=1)
-        chains = native.backtrack_compact_batch(
-            arr, self.opt.min_cnt, self.opt.min_chain_score,
-            self.cfg.backtrack_k, parts[0].bt_cuts, self.SEG_LEN,
-        )
+        with self.metrics.span("fe_host_bt"):
+            arr = np.concatenate(
+                [h.out[:, :, :A_used].cpu().numpy() for h in parts], axis=1)
+            chains = native.backtrack_compact_batch(
+                arr, self.opt.min_cnt, self.opt.min_chain_score,
+                self.cfg.backtrack_k, parts[0].bt_cuts, self.SEG_LEN,
+            )
         if chains is None:
             raise RuntimeError(
                 "the host chain backtrack needs the native library "
@@ -824,7 +846,7 @@ class AlignmentEngine:
         [n], n_raw [n]) for the n submitted reads: the compact chain rows
         (regions_from_compact layout) that post_chain_packed takes."""
         handles, n = ticket
-        with self.metrics.timer("front_end"):
+        with self.metrics.span("front_end"):
             chains, rep_len, n_raw = self._fe_collect(handles)
         return chains[:n], rep_len[:n], n_raw[:n]
 
@@ -904,7 +926,6 @@ class AlignmentEngine:
         a_boost: int = 1,
         sink=None,
     ) -> None:
-        k = self.index.k
         B, M, A = self.fe_shapes(L, a_boost=a_boost, b_real=len(idxs))
         self._check_chain_fits(A)
         use_bt = self._bt_enabled(A)
@@ -912,14 +933,14 @@ class AlignmentEngine:
         bt_cuts = min(8, L // self.SEG_LEN)
 
         def stage_dispatch(chunk):
-            lens, handles = self._fe_submit_batch(
+            _lens, handles = self._fe_submit_batch(
                 [codes[ri] for ri in chunk], L, B, M, A, use_bt, bt_cuts
             )
-            return chunk, lens, handles
+            return chunk, handles
 
         def stage_process(state):
-            chunk, lens, handles = state
-            with self.metrics.timer("front_end"):
+            chunk, handles = state
+            with self.metrics.span("front_end"):
                 chains_np, rep_len, n_raw = self._fe_collect(handles)
             for bi in np.nonzero(n_raw[: len(chunk)] > A)[0]:
                 overflow_reads.append(chunk[int(bi)])
@@ -930,20 +951,9 @@ class AlignmentEngine:
             )
             if fb is not None and not fb.any():
                 return
-            jobs: List[_ExtJob] = []
-            read_regions: List[Tuple[int, List[Region], int]] = []
-            for bi, ri in enumerate(chunk):
-                if fb is not None and not fb[bi]:
-                    continue
-                qlen = int(lens[bi])
-                regions = regions_from_compact(chains_np[bi], qlen, k)
-                set_parent(regions, self.opt.mask_level, self.opt.mask_len)
-                regions = select_sub(regions, self.opt.pri_ratio, self.opt.best_n)
-                read_regions.append((ri, regions, int(rep_len[bi])))
-                jobs.extend(self._make_jobs(regions, codes[ri], qlen))
-            self._run_jobs(jobs)
-            self._run_split_rounds(read_regions, codes)
-            self._finish_reads(read_regions, codes, out, cs, md)
+            with self.metrics.span("post_chain_py"):
+                self._post_chain_py(chunk, chains_np, rep_len, fb, codes,
+                                    out, cs, md)
 
         # software pipeline: up to depth-1 dispatched batches in flight
         # while one is processed on the host
@@ -1055,7 +1065,7 @@ class AlignmentEngine:
             np.int32,
         )
         ops = self.cfg.traceback_max_ops
-        with self.metrics.timer("extend"):
+        with self.metrics.span("extend"):
             res = extend_traceback_device(
                 q, t, ql, tl, mode, W, self._ext_params, self.opt.end_bonus,
                 max_ops=ops, device=self.device, graphs=self._ext_graphs,
@@ -1079,7 +1089,7 @@ class AlignmentEngine:
         shape on the card), the direction bytes downloaded and walked on
         the host."""
         QMAX, TMAX = q.shape[1], t.shape[1]
-        with self.metrics.timer("extend"):
+        with self.metrics.span("extend"):
             res = extend_dp_device(q, t, ql, tl, W, self._ext_params,
                                    device=self.device,
                                    graphs=self._ext_graphs)
@@ -1177,7 +1187,7 @@ class AlignmentEngine:
         C++ (native extend_small_batch), one call per mode."""
         from .. import native
 
-        with self.metrics.timer("extend_small"):
+        with self.metrics.span("extend_small"):
             for mode, kinds in ((0, ("mid",)), (1, ("left", "right"))):
                 sel = [j for j in jobs if j.kind in kinds]
                 if not sel:
@@ -1399,7 +1409,7 @@ class AlignmentEngine:
                 )
         if not cand:
             return
-        with self.metrics.timer("extend"):
+        with self.metrics.span("extend"):
             J = 2 * len(cand)
             QS = max(len(c[6]) for c in cand)
             TS = max(len(c[7]) for c in cand)
@@ -1557,7 +1567,7 @@ class AlignmentEngine:
             return None
         ip, dpar = self._post_chain_params()
         codes_list = [codes[ri] for ri in chunk]
-        with self.metrics.timer("extend"):
+        with self.metrics.span("extend"), self.metrics.span("post_chain"):
             res = native.post_chain_batch(
                 chains_np, codes_list, rep_len,
                 self.index.ref_codes,
@@ -1569,16 +1579,19 @@ class AlignmentEngine:
         (nreg, fields, cig, ncig, cs_get, md_get, fallback, stats,
          raw_tags) = res
         self.metrics.add("dp_cells", float(stats[0]))
+        # thread CPU seconds inside the native call, beside the span's
+        # time_post_chain_s (the interpreter lock released in between)
+        self.metrics.add("cpu_post_chain_s", float(stats[2]))
         self.metrics.add("post_chain_fallbacks", float(fallback.sum()))
         if sink is not None:
-            with self.metrics.timer("finalize"):
+            with self.metrics.span("finalize"):
                 sink.add_native(chunk, nreg, fields, cig, ncig, raw_tags,
                                 fallback)
                 fb_idx = np.nonzero(fallback[: len(chunk)])[0]
                 if len(fb_idx):
                     sink.mark_python(np.asarray(chunk, np.int64)[fb_idx])
             return fallback
-        with self.metrics.timer("finalize"):
+        with self.metrics.span("finalize"):
             for bi, ri in enumerate(chunk):
                 if fallback[bi]:
                     continue
@@ -1725,7 +1738,7 @@ class AlignmentEngine:
         (align.c's two-round splice loop); mirrored here per REGION so
         all segments share one sense.  The winning sense is recorded as
         trans_strand (+1/-1, 0 when no intron was found)."""
-        with self.metrics.timer("extend"):
+        with self.metrics.span("extend"):
             senses = []
             if self.opt.flag & _MM_F_SPLICE_FOR:
                 senses.append(1)
@@ -1800,7 +1813,7 @@ class AlignmentEngine:
         buffers (extend_jobs_batch)."""
         from .. import native
 
-        with self.metrics.timer("extend"):
+        with self.metrics.span("extend"):
             sel: List[_ExtJob] = []
             Wv: List[int] = []
             modev: List[int] = []
@@ -1870,7 +1883,7 @@ class AlignmentEngine:
         then the per-read set_parent/set_mapq tails.  Per-read native
         calls were the dominant host cost at high read rates (ctypes
         crossing + string buffer churn per read)."""
-        with self.metrics.timer("finalize"):
+        with self.metrics.span("finalize"):
             self._finalize_many_impl(groups, codes, cs, md)
 
     def _finalize_many_impl(

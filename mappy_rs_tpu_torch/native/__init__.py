@@ -530,8 +530,9 @@ def post_chain_batch(
     call runs regions + parent/select + extension + finalize + mapq
     for a whole device batch.  Returns (nreg [B], fields [B,K,NF],
     cig [B,K,cap], ncig [B,K], cs_list, md_list, fallback [B],
-    stats [cells, jobs]) where cs_list/md_list are per-(read, slot)
-    string getters, or None if the native lib is unavailable.
+    stats [cells, jobs, the call's thread CPU seconds in C++]) where
+    cs_list/md_list are per-(read, slot) string getters, or None if the
+    native lib is unavailable.
     Reads with fallback=1 (zdrop split, cap overflow) must be remapped
     by the Python path."""
     lib = _load()
@@ -561,7 +562,7 @@ def post_chain_batch(
     cs_len = np.full((B, K), -1, np.int64)
     md_len = np.full((B, K), -1, np.int64)
     fallback = np.zeros(B, np.uint8)
-    stats = np.zeros(2, np.float64)
+    stats = np.zeros(3, np.float64)
     lib.post_chain_batch(
         np.ascontiguousarray(chains), B, K, FLD,
         codes, code_off, np.ascontiguousarray(rep_len, np.int32),

@@ -19,6 +19,7 @@
 #include <cstdint>
 #include <cstring>
 #include <cmath>
+#include <ctime>
 #include <algorithm>
 #include <vector>
 
@@ -269,7 +270,8 @@ extern "C" {
 //   cs_len/md_len int64 [B, K]  (-1 = not requested / absent)
 //   fallback   uint8 [B]: 1 = python must remap this read (zdrop
 //              split, cap overflow) — its out_* slots are unspecified
-//   stats_out  double [2]: {dp_cells, n_jobs} accumulated
+//   stats_out  double [3]: {dp_cells, n_jobs, thread CPU seconds of
+//              this call}
 void post_chain_batch(
     const int32_t* chains, int B, int K, int FLD, const uint8_t* codes,
     const int64_t* code_off, const int32_t* rep_len, const uint8_t* ref,
@@ -279,6 +281,8 @@ void post_chain_batch(
     char* cs_buf, int64_t cs_cap_per, int64_t* cs_len, char* md_buf,
     int64_t md_cap_per, int64_t* md_len, uint8_t* fallback,
     double* stats_out) {
+  timespec cpu0;
+  clock_gettime(CLOCK_THREAD_CPUTIME_ID, &cpu0);
   const double mask_level = dpar[0], pri_ratio = dpar[1];
   const int span_dflt = ip[IP_SPAN];
   const int seg_len = ip[IP_SEG_LEN];
@@ -651,6 +655,10 @@ void post_chain_batch(
   }
   stats_out[0] = cells;
   stats_out[1] = n_jobs;
+  timespec cpu1;
+  clock_gettime(CLOCK_THREAD_CPUTIME_ID, &cpu1);
+  stats_out[2] = (double)(cpu1.tv_sec - cpu0.tv_sec) +
+                 1e-9 * (double)(cpu1.tv_nsec - cpu0.tv_nsec);
 }
 
 }  // extern "C"

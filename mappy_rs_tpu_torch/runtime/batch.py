@@ -30,6 +30,8 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
+from ..utils.metrics import EngineMetrics
+
 WORK_QUEUE_CAP = 50_000  # reference: work ArrayQueue::new(50000), lib.rs:429
 RESULTS_QUEUE_CAP = 50_000  # reference: results ArrayQueue::new(50000), lib.rs:430
 RESULT_CAP = 20_000  # reference: bounded channel(20000), lib.rs:950
@@ -96,7 +98,8 @@ class _WorkQueue:
         that were immediately available (no waiting to fill)."""
         with self._not_empty:
             if not self._q:
-                self._not_empty.wait(timeout=timeout)
+                if timeout > 0:
+                    self._not_empty.wait(timeout=timeout)
                 if not self._q:
                     return None
             first = self._q[0]
@@ -133,7 +136,8 @@ class _BlockChannel:
         """False if capacity did not free up within ``timeout``."""
         with self._not_full:
             if self._n + nreads > self.cap and self._n > 0:
-                self._not_full.wait(timeout=timeout)
+                if timeout > 0:
+                    self._not_full.wait(timeout=timeout)
                 if self._n + nreads > self.cap and self._n > 0:
                     return False
             self._q.append((payload, nreads))
@@ -239,15 +243,19 @@ class AlignmentBatchResultIter:
 class WorkerPool:
     """Persistent worker threads over a shared bounded work queue."""
 
-    def __init__(self, n_threads: int, map_fn, batch_size: int = 256):
+    def __init__(self, n_threads: int, map_fn, batch_size: int = 256,
+                 metrics: Optional[EngineMetrics] = None):
         """map_fn(list[str]) -> list[list[Mapping]] (threaded path maps
         with cs=True, MD=False, as the reference hard-codes,
         lib.rs:587-592).
 
         ``map_fn``/``batch_size`` may also be per-worker lists of
         length ``n_threads`` — the multi-process runtime gives each
-        worker thread a proxy to its own child process."""
+        worker thread a proxy to its own child process.  The workers'
+        waits are spans of `metrics` (the engine's): ``queue_wait``,
+        ``epoch_wait`` and ``result_wait``."""
         self.n_threads = n_threads
+        self.metrics = metrics if metrics is not None else EngineMetrics()
         if not isinstance(map_fn, (list, tuple)):
             map_fn = [map_fn] * n_threads
         if not isinstance(batch_size, (list, tuple)):
@@ -346,9 +354,13 @@ class WorkerPool:
         map_fn = self.map_fns[wi]
         batch_size = self.batch_sizes[wi]
         while not self.stop.is_set():
-            got = self.work.take_batch(batch_size, timeout=0.05)
+            got = self.work.take_batch(batch_size, timeout=0.0)
             if got is None:
-                continue
+                with self.metrics.span("queue_wait"):
+                    while got is None and not self.stop.is_set():
+                        got = self.work.take_batch(batch_size, timeout=0.05)
+                if got is None:
+                    continue
             sink, items = got
             if items is None:  # Done pill
                 self._put_results_q(sink, _DONE, 1)
@@ -376,7 +388,7 @@ class WorkerPool:
         """All-workers-saw-Done rendezvous (lib.rs:556-575 semantics:
         spin until every thread marked done, no timeout; here a
         Condition so shutdown can interrupt the wait)."""
-        with self._epoch_cv:
+        with self.metrics.span("epoch_wait"), self._epoch_cv:
             gen = self._epoch_gen
             self._epoch_count += 1
             if self._epoch_count == self.n_threads:
@@ -392,11 +404,16 @@ class WorkerPool:
     ) -> bool:
         """Worker -> results queue (cap 50,000 reads), dropping when
         the destination iterator is gone."""
-        while not self.stop.is_set():
-            if sink.closed and item is not _DONE:
-                return False
-            if self.results.put((sink, item), nreads, timeout=0.2):
-                return True
+        if self.stop.is_set() or (sink.closed and item is not _DONE):
+            return False
+        if self.results.put((sink, item), nreads, timeout=0.0):
+            return True
+        with self.metrics.span("result_wait"):
+            while not self.stop.is_set():
+                if sink.closed and item is not _DONE:
+                    return False
+                if self.results.put((sink, item), nreads, timeout=0.2):
+                    return True
         return False
 
     def _collector_loop(self) -> None:

@@ -456,8 +456,7 @@ def report(rec: dict) -> None:
         f"# steady-state stage cpu-seconds over {n_procs} procs "
         f"(per-proc ~= /{n_procs}; measured wall {wall:.2f}s for "
         f"{len(card['passes']) * n_reads} reads): front_end={fe:.2f} "
-        f"extend={ext:.2f} finalize={fin:.2f}; host dp_cells/s="
-        f"{m.get('dp_cells_per_sec', 0):.3e}\n"
+        f"extend={ext:.2f} finalize={fin:.2f}\n"
         f"# front-end CUDA graphs: {json.dumps(rec['fe_graphs'])}\n"
         f"# parent-process CPU during measurement: "
         f"{card['parent_cpu_s']:.2f}s over {wall:.2f}s wall = "

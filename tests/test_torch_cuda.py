@@ -11,6 +11,8 @@ kernel's plain version with the JAX package is in
 tests/test_torch_front_end.py (K1, K2) and tests/test_torch_extend.py
 (K3, K4).
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -903,3 +905,41 @@ def test_decision_stream_of_every_batch_size_within_budget(cuda):
     assert c["dec_graph_evictions"] > 0
     assert c["dec_graph_replays"] == 2 * len(sizes)
     assert grown <= (DEC_GRAPH_BUDGET_MB + largest + 64) * 2**20 + eager
+
+
+@pytest.mark.cuda
+def test_span_contains_its_kernel_launch(cuda, tmp_path):
+    """A worker-state span around one kernel launch, merged into a trace
+    of CUDA activity on the trace's clock (utils/metrics.py
+    ``span_events``), contains that launch's cudaLaunchKernel event."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mappy_rs_tpu_torch.utils.metrics import EngineMetrics
+
+    m = EngineMetrics()
+    m.set_timeline(True)
+    x = torch.ones(1 << 20, device=cuda)
+    (x * 2).sum()  # warm: the kernels' first launches stay out
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.01)
+        with m.span("fe_submit"):
+            time.sleep(0.002)
+            y = x * 3
+            time.sleep(0.002)
+        torch.cuda.synchronize()
+        time.sleep(0.01)
+    assert float(y[0]) == 3.0
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    (sp,) = m.span_events(int(trace.get("baseTimeNanoseconds", 0)))
+    launches = [e for e in trace["traceEvents"]
+                if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
+                and e["name"].startswith("cudaLaunchKernel")]
+    assert len(launches) == 1, [e["name"] for e in launches]
+    (la,) = launches
+    assert sp["ts"] <= float(la["ts"])
+    assert float(la["ts"]) + float(la["dur"]) <= sp["ts"] + sp["dur"]

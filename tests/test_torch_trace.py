@@ -100,3 +100,46 @@ def test_main_on_the_cpu_with_host_profile(tmp_path, monkeypatch, capsys):
     assert host["threads4_reads_per_s"] > 0
     assert host["serial_front_end_ms_per_batch"] > 0
     assert "front_end_bt" in host["cprofile_top"]
+
+
+def test_gaps_mode_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """--gaps on the CPU: the threaded calls with the workers' timeline
+    on; no device trace, so the device fields are null, and every
+    worker's states are filled, with the merged trace written."""
+    monkeypatch.setenv("MAPPY_RS_TPU_BATCH", "32")
+    out, tr = tmp_path / "gaps.json", tmp_path / "trace.json"
+    assert tfe.main(["--gaps", "--device", "cpu", "--genome-len", "300000",
+                     "--reads", "64", "--len", "800", "--len-range",
+                     "500,1000", "--threads", "2", "--calls", "2",
+                     "--trace-out", str(tr), "--out", str(out)]) == 0
+    rec = json.loads(out.read_text())
+    assert "device idle" not in capsys.readouterr().out
+    assert rec["device"] == "cpu" and set(rec) == {"device", "preset", "gaps"}
+    g = rec["gaps"]
+    assert g["device_idle_pct"] is None and g["idle_gaps"] is None
+    assert g["reads"] == 2 * 64 and g["reads_per_s"] > 0
+    assert g["threads"] == 2 and len(g["workers"]) == 2
+    assert g["timeline_dropped"] == 0
+    for w in g["workers"].values():
+        assert {"fe_submit", "post_chain", "epoch_wait"} <= set(w["states_s"])
+        assert 0.0 <= w["none_pct"] < 50.0
+    assert g["metrics"]["time_post_chain_s"] > 0
+    assert g["metrics"]["calls_fe_submit"] > 0
+    events = json.loads(tr.read_text())["traceEvents"]
+    assert events and {e["cat"] for e in events} == {"user_annotation"}
+
+
+def test_gaps_states_at():
+    by_tid = {1: [{"name": "post_chain", "ts": 0.0, "dur": 10.0}],
+              2: [{"name": "post_chain", "ts": 2.0, "dur": 10.0}],
+              3: [{"name": "epoch_wait", "ts": 0.0, "dur": 4.0},
+                  {"name": "queue_wait", "ts": 4.0, "dur": 9.0}],
+              4: [{"name": "fe_wait", "ts": 9.0, "dur": 1.0}]}
+    assert tfe.states_at(by_tid, 5.0) == \
+        "post_chain x2, queue_wait x1, none x1"
+    assert tfe.device_intervals({"traceEvents": [
+        {"ph": "X", "cat": "kernel", "ts": 5, "dur": 5},
+        {"ph": "X", "cat": "gpu_memcpy", "ts": 0, "dur": 6},
+        {"ph": "X", "cat": "cuda_runtime", "ts": 20, "dur": 5},
+        {"ph": "X", "cat": "kernel", "ts": 30, "dur": 1}]}) == \
+        [[0.0, 10.0], [30.0, 31.0]]
